@@ -5,8 +5,12 @@
 // (realtime_style_transfer_tpu/ops/pallas/fused_transfer.py: run_conv /
 // run_conv_direct, fold_cin_affine).  One launch computes one stage:
 //
-//   prologue  x' = bf16(relu?(a*x + b) + skip_in?), a and b folded per block
-//             from the producer's CIN moments and the style row; out-of-image
+//   prologue  x' = bf16(relu?(f) + skip_in?) with f = a*x + b, a and b
+//             folded per block from the producer's CIN moments and the style
+//             row; dual style blends per pixel, f = (x*a + b) + w*(x*da + db),
+//             with da, db the second style's fold minus the first's and w the
+//             pixel's weight (the dual style of _kernel_impl: fold_cin_affine's
+//             delta rows and the blend of the band transform).  Out-of-image
 //             taps are zero AFTER the transform (the conv pads the normalised
 //             activation).  The centre tap of a stride-1 stage writes x' to
 //             skip_out, so each pixel is written once, by the block that owns
@@ -67,10 +71,14 @@ struct Params {
   const float* in_stats;       // (2, Cin) producer sums / sums of squares
   const float* in_scale;       // (Cin,) style scale row
   const float* in_bias;        // (Cin,) style bias row
+  const float* in_scale1;      // (Cin,) second style's scale row, dual only
+  const float* in_bias1;       // (Cin,) second style's bias row, dual only
+  const __nv_bfloat16* weight; // (H, W) per-pixel weight of style 1, dual only
   float in_count;
   float eps;
   int in_affine;
   int in_relu;
+  int dual;                       // 1: blend the two styles' affines by weight
   const __nv_bfloat16* skip_in;   // same shape as x, or null
   __nv_bfloat16* skip_out;        // same shape as x, or null
   __nv_bfloat16* out;
@@ -91,11 +99,14 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The prologue on 8 consecutive channels; every rounding point is explicit so
-// the plain PyTorch version (mul, add, relu, add, round) gives the same bits.
+// The prologue on 8 consecutive channels of one pixel, whose dual-style
+// weight is wv; every rounding point is explicit so the plain PyTorch version
+// (mul, add[, mul, add, mul, add], relu, add, round) gives the same bits.
 __device__ __forceinline__ uint4 transform8(uint4 v, int c, const float* sa,
-                                            const float* sb, bool affine,
-                                            bool relu, const __nv_bfloat16* skip) {
+                                            const float* sb, const float* sda,
+                                            const float* sdb, float wv, bool affine,
+                                            bool dual, bool relu,
+                                            const __nv_bfloat16* skip) {
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
   uint4 sv = make_uint4(0, 0, 0, 0);
   if (skip) sv = *reinterpret_cast<const uint4*>(skip);
@@ -104,8 +115,14 @@ __device__ __forceinline__ uint4 transform8(uint4 v, int c, const float* sa,
   for (int j = 0; j < 4; ++j) {
     float2 f = __bfloat1622float2(h[j]);
     if (affine) {
-      f.x = __fadd_rn(__fmul_rn(f.x, sa[c + 2 * j]), sb[c + 2 * j]);
-      f.y = __fadd_rn(__fmul_rn(f.y, sa[c + 2 * j + 1]), sb[c + 2 * j + 1]);
+      const float2 x = f;
+      const int c0 = c + 2 * j, c1 = c0 + 1;
+      f.x = __fadd_rn(__fmul_rn(x.x, sa[c0]), sb[c0]);
+      f.y = __fadd_rn(__fmul_rn(x.y, sa[c1]), sb[c1]);
+      if (dual) {
+        f.x = __fadd_rn(f.x, __fmul_rn(wv, __fadd_rn(__fmul_rn(x.x, sda[c0]), sdb[c0])));
+        f.y = __fadd_rn(f.y, __fmul_rn(wv, __fadd_rn(__fmul_rn(x.y, sda[c1]), sdb[c1])));
+      }
     }
     if (relu) {
       f.x = fmaxf(f.x, 0.f);
@@ -133,11 +150,13 @@ __device__ __forceinline__ size_t out_offset(const Params& p, int pix, int n) {
 template <int BN>
 struct BlockState {
   float a[MAX_CIN], b[MAX_CIN];  // folded CIN affine of the input
+  float da[MAX_CIN], db[MAX_CIN];  // dual: second style's affine minus the first's
   float sum[BN], sq[BN];         // the block's moments per output column
 };
 
-// Fold the producer's CIN moments and the style row into a*x + b; zero the
-// block's moment sums.
+// Fold the producer's CIN moments and the style row into a*x + b (and, dual,
+// the second style's rows into the deltas da, db); zero the block's moment
+// sums.
 template <int BN, int NT>
 __device__ __forceinline__ void block_init(const Params& p, BlockState<BN>& st) {
   if (p.in_affine) {
@@ -147,8 +166,14 @@ __device__ __forceinline__ void block_init(const Params& p, BlockState<BN>& st) 
                                   __fmul_rn(mean, mean));
       const float inv = 1.0f / sqrtf(__fadd_rn(var, p.eps));
       const float a = __fmul_rn(p.in_scale[c], inv);
+      const float b = __fsub_rn(p.in_bias[c], __fmul_rn(mean, a));
       st.a[c] = a;
-      st.b[c] = __fsub_rn(p.in_bias[c], __fmul_rn(mean, a));
+      st.b[c] = b;
+      if (p.dual) {
+        const float a1 = __fmul_rn(p.in_scale1[c], inv);
+        st.da[c] = __fsub_rn(a1, a);
+        st.db[c] = __fsub_rn(__fsub_rn(p.in_bias1[c], __fmul_rn(mean, a1)), b);
+      }
     }
   }
   for (int i = threadIdx.x; i < BN; i += NT) st.sum[i] = st.sq[i] = 0.f;
@@ -311,9 +336,11 @@ __global__ void __launch_bounds__(G_THREADS) conv_gather_kernel(const Params p) 
         if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
           const size_t off = ((size_t)iy * p.W + ix) * p.Cin + c;
           v = *reinterpret_cast<const uint4*>(p.x + off);
-          if (transform)
-            v = transform8(v, c, st.a, st.b, p.in_affine, p.in_relu,
-                           p.skip_in ? p.skip_in + off : nullptr);
+          if (transform) {
+            const float wv = p.dual ? __bfloat162float(p.weight[(size_t)iy * p.W + ix]) : 0.f;
+            v = transform8(v, c, st.a, st.b, st.da, st.db, wv, p.in_affine, p.dual,
+                           p.in_relu, p.skip_in ? p.skip_in + off : nullptr);
+          }
           // the centre tap of a stride-1 stage reads the block's own pixel
           if (p.skip_out && ty == p.pt && tx == p.pl && blockIdx.y == 0)
             *reinterpret_cast<uint4*>(p.skip_out + off) = v;
@@ -423,9 +450,11 @@ __global__ void __launch_bounds__(NTHREADS) conv_window_kernel(const Params p) {
       if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
         const size_t off = ((size_t)iy * p.W + ix) * p.Cin + c;
         v = *reinterpret_cast<const uint4*>(p.x + off);
-        if (transform)
-          v = transform8(v, c, st.a, st.b, p.in_affine, p.in_relu,
-                         p.skip_in ? p.skip_in + off : nullptr);
+        if (transform) {
+          const float wv = p.dual ? __bfloat162float(p.weight[(size_t)iy * p.W + ix]) : 0.f;
+          v = transform8(v, c, st.a, st.b, st.da, st.db, wv, p.in_affine, p.dual,
+                         p.in_relu, p.skip_in ? p.skip_in + off : nullptr);
+        }
       }
       *reinterpret_cast<uint4*>(win + q * pitch + c) = v;
     }
@@ -521,7 +550,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" int rst_conv_stage(
     const void* x, const void* w, const void* kmap, const void* bias,
     const void* cscale, const void* cshift, const void* in_stats,
-    const void* in_scale, const void* in_bias, float in_count, float eps,
+    const void* in_scale, const void* in_bias, const void* in_scale1,
+    const void* in_bias1, const void* weight, float in_count, float eps,
     int in_affine, int in_relu, const void* skip_in, void* skip_out, void* out,
     void* stats_out, int H, int W, int Cin, int pack_c, int OH, int OW, int N,
     int K_pad, int KH, int KW, int S, int pt, int pl, int c_log, int transpose,
@@ -536,6 +566,14 @@ extern "C" int rst_conv_stage(
   p.in_stats = static_cast<const float*>(in_stats);
   p.in_scale = static_cast<const float*>(in_scale);
   p.in_bias = static_cast<const float*>(in_bias);
+  p.in_scale1 = static_cast<const float*>(in_scale1);
+  p.in_bias1 = static_cast<const float*>(in_bias1);
+  p.weight = static_cast<const __nv_bfloat16*>(weight);
+  p.dual = weight != nullptr;
+  // dual style needs both second-style rows, a weight plane and a CIN prologue
+  if ((in_scale1 != nullptr) != p.dual || (in_bias1 != nullptr) != p.dual ||
+      (p.dual && !in_affine))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.in_count = in_count;
   p.eps = eps;
   p.in_affine = in_affine;

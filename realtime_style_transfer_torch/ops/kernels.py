@@ -4,9 +4,10 @@
 replace the TPU kernel ``FusedTransfer._kernel_impl``
 (``realtime_style_transfer_tpu/ops/pallas/fused_transfer.py``): its conv
 stages (``run_conv`` / ``run_conv_direct`` with ``fold_cin_affine``) and its
-``run_pointwise`` finish.  The TPU kernel runs all stages in one launch; here
-each stage is one launch, because CIN moments are whole-frame sums and blocks
-on a GPU cannot wait for each other inside a launch.
+``run_pointwise`` finish, single or dual style (``fold_cin_affine``'s delta
+rows and the per-pixel blend).  The TPU kernel runs all stages in one launch;
+here each stage is one launch, because CIN moments are whole-frame sums and
+blocks on a GPU cannot wait for each other inside a launch.
 
 Bounds on the H100, from the flagship's shapes: the conv stages are bound by
 operations (about 127 GFLOP against 0.35 GB a frame), so the kernel keeps
@@ -22,7 +23,9 @@ element once.
 Each wrapper dispatches on the device of its input: a CPU tensor goes to the
 plain PyTorch version (same signature, same rounding points: bf16 storage,
 f32 affine, f32 moments taken before rounding), a CUDA tensor launches the
-kernel or raises.  Each wrapper's ``launches`` counts kernel launches only.
+kernel or raises.  Each wrapper's ``launches`` counts kernel launches only
+(a launch recorded into a CUDA graph counts once, when it is recorded);
+:func:`replay_graph` counts the replays of such a graph.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
@@ -58,8 +61,8 @@ EPI = {"contract": 0, "relu": 1, "bias": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "rst_conv_stage": [_P] * 9 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19 + [_P],
-    "rst_finish": [_P] * 4 + [_F, _F, _P] + [_I] * 4 + [_P],
+    "rst_conv_stage": [_P] * 12 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19 + [_P],
+    "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 4 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -144,7 +147,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 class Prologue(NamedTuple):
-    """The producer's CIN, applied by the consumer to each value it loads."""
+    """The producer's CIN, applied by the consumer to each value it loads.
+
+    Dual style shares the moments between the two styles and blends their
+    affines per pixel by ``weight``, the second style's weight at the
+    consumer's input resolution.
+    """
 
     stats: torch.Tensor   # (2, C) f32: sums and sums of squares
     count: float          # values per channel behind those sums
@@ -152,6 +160,13 @@ class Prologue(NamedTuple):
     bias: torch.Tensor    # (C,) f32 style bias row
     eps: float
     relu: bool
+    scale1: Optional[torch.Tensor] = None  # (C,) f32 second style's scale row
+    bias1: Optional[torch.Tensor] = None   # (C,) f32 second style's bias row
+    weight: Optional[torch.Tensor] = None  # (H', W') bf16 weight of the second style
+
+    @property
+    def dual(self) -> bool:
+        return self.weight is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,14 +285,30 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
 # ---------------------------------------------------------------------------
 
 
-def fold_cin(stats: torch.Tensor, count: float, scale: torch.Tensor,
-             bias: torch.Tensor, eps: float):
-    """Moments + style row -> the per-channel affine (a, b), f32."""
-    mean = stats[0] / count
-    var = stats[1] / count - mean * mean
-    inv = torch.reciprocal(torch.sqrt(var + eps))
-    a = scale * inv
-    return a, bias - mean * a
+def fold_cin(pro: Prologue):
+    """Moments + style rows -> the per-channel affine (a, b) and, dual, the
+    second style's affine minus the first's (da, db), all f32; (da, db) are
+    None for one style."""
+    mean = pro.stats[0] / pro.count
+    var = pro.stats[1] / pro.count - mean * mean
+    inv = torch.reciprocal(torch.sqrt(var + pro.eps))
+    a = pro.scale * inv
+    b = pro.bias - mean * a
+    if not pro.dual:
+        return a, b, None, None
+    a1 = pro.scale1 * inv
+    return a, b, a1 - a, (pro.bias1 - mean * a1) - b
+
+
+def cin_affine(xf: torch.Tensor, pro: Prologue) -> torch.Tensor:
+    """The CIN affine of (H', W', C) f32 ``xf``: ``x*a + b``, or, dual,
+    ``(x*a + b) + w*(x*da + db)`` with every product and sum rounded to f32
+    in that order, as the kernels do."""
+    a, b, da, db = fold_cin(pro)
+    f = xf * a + b
+    if pro.dual:
+        f = f + pro.weight.float()[..., None] * (xf * da + db)
+    return f
 
 
 def unpack_frame(packed: torch.Tensor, c: int) -> torch.Tensor:
@@ -295,9 +326,7 @@ def conv_stage_plain(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     xf = (unpack_frame(x, st.cin) if st.pack_c else x).float()
     if prologue is not None or skip_in is not None:
         if prologue is not None:
-            a, b = fold_cin(prologue.stats, prologue.count, prologue.scale,
-                            prologue.bias, prologue.eps)
-            xf = xf * a + b
+            xf = cin_affine(xf, prologue)
             if prologue.relu:
                 xf = torch.relu(xf)
         if skip_in is not None:
@@ -328,9 +357,7 @@ def conv_stage_plain(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
 def finish_plain(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tensor:
     """The plain version of :func:`finish`."""
     c = x.shape[2]
-    a, b = fold_cin(prologue.stats, prologue.count, prologue.scale,
-                    prologue.bias, prologue.eps)
-    y = torch.sigmoid(x.float() * a + b).to(torch.bfloat16)
+    y = torch.sigmoid(cin_affine(x.float(), prologue)).to(torch.bfloat16)
     out.zero_()
     out[:, :, :16 * c] = pack(y[None], 4)[0]
     return out
@@ -347,6 +374,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: want a contiguous 16-byte-aligned tensor")
+
+
+def _check_prologue(pro: Prologue, name: str, c: int, hw, device) -> None:
+    f32 = torch.float32
+    _check(pro.stats, f"{name} prologue stats", f32, (2, c), device)
+    _check(pro.scale, f"{name} prologue scale", f32, (c,), device)
+    _check(pro.bias, f"{name} prologue bias", f32, (c,), device)
+    second = (pro.scale1, pro.bias1, pro.weight)
+    if any(t is None for t in second) != all(t is None for t in second):
+        raise ValueError(f"{name}: dual style needs scale1, bias1 and weight together")
+    if pro.dual:
+        _check(pro.scale1, f"{name} prologue scale1", f32, (c,), device)
+        _check(pro.bias1, f"{name} prologue bias1", f32, (c,), device)
+        _check(pro.weight, f"{name} prologue weight", torch.bfloat16, hw, device)
+
+
+def _prologue_args(pro: Optional[Prologue]):
+    """The six pointers of a prologue, in the kernels' argument order."""
+    if pro is None:
+        return (None,) * 6
+    return tuple(_ptr(t) for t in (pro.stats, pro.scale, pro.bias, pro.scale1,
+                                   pro.bias1, pro.weight))
 
 
 def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
@@ -379,16 +428,11 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     if prologue is not None:
         if st.cin > MAX_CIN:
             raise ValueError(f"{st.name}: a CIN prologue takes <= {MAX_CIN} channels")
-        _check(prologue.stats, f"{st.name} prologue stats", f32, (2, st.cin), dev)
-        _check(prologue.scale, f"{st.name} prologue scale", f32, (st.cin,), dev)
-        _check(prologue.bias, f"{st.name} prologue bias", f32, (st.cin,), dev)
+        _check_prologue(prologue, st.name, st.cin, st.in_hw, dev)
     oh, ow = st.out_hw
     err = _lib("conv_stage.cu").rst_conv_stage(
         _ptr(x), _ptr(st.w), _ptr(st.kmap), _ptr(st.bias), _ptr(st.cscale),
-        _ptr(st.cshift),
-        _ptr(prologue.stats) if prologue else None,
-        _ptr(prologue.scale) if prologue else None,
-        _ptr(prologue.bias) if prologue else None,
+        _ptr(st.cshift), *_prologue_args(prologue),
         float(prologue.count) if prologue else 1.0,
         float(prologue.eps) if prologue else 0.0,
         int(prologue is not None), int(bool(prologue and prologue.relu)),
@@ -408,25 +452,22 @@ conv_stage.launches = 0
 
 def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tensor:
     """sigmoid(CIN(x)) of the final (H, W, C) stage into the packed
-    (H/4, W/4, out_c) bf16 frame; channels >= 16*C are zero."""
+    (H/4, W/4, out_c) bf16 frame; channels >= 16*C are zero.  A dual
+    prologue's weight plane is (H, W)."""
     if x.device.type == "cpu":
         return finish_plain(x, prologue, out)
     if x.device.type != "cuda":
         raise ValueError(f"finish runs on CUDA or the CPU, not {x.device}")
     h, w, c = x.shape
     dev = x.device
-    f32 = torch.float32
     _check(x, "finish input", torch.bfloat16, (h, w, c), dev)
     if h % 4 or w % 4 or c > MAX_CIN or out.shape[2] < 16 * c:
         raise ValueError(f"finish: unsupported shapes {tuple(x.shape)} -> {tuple(out.shape)}")
     _check(out, "finish output", torch.bfloat16, (h // 4, w // 4, out.shape[2]), dev)
-    _check(prologue.stats, "finish stats", f32, (2, c), dev)
-    _check(prologue.scale, "finish scale", f32, (c,), dev)
-    _check(prologue.bias, "finish bias", f32, (c,), dev)
+    _check_prologue(prologue, "finish", c, (h, w), dev)
     err = _lib("finish.cu").rst_finish(
-        _ptr(x), _ptr(prologue.stats), _ptr(prologue.scale), _ptr(prologue.bias),
-        float(prologue.count), float(prologue.eps), _ptr(out), h, w, c,
-        out.shape[2], _stream(x))
+        _ptr(x), *_prologue_args(prologue), float(prologue.count),
+        float(prologue.eps), _ptr(out), h, w, c, out.shape[2], _stream(x))
     if err:
         raise RuntimeError(f"finish: CUDA error {err} at launch")
     finish.launches += 1
@@ -436,6 +477,17 @@ def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tens
 finish.launches = 0
 
 
+def replay_graph(graph: "torch.cuda.CUDAGraph") -> None:
+    """Replay a CUDA graph of recorded kernel launches.  A replay does not
+    pass through the wrappers, so ``replay_graph.replays`` counts it."""
+    graph.replay()
+    replay_graph.replays += 1
+
+
+replay_graph.replays = 0
+
+
 def reset_launch_counts() -> None:
     conv_stage.launches = 0
     finish.launches = 0
+    replay_graph.replays = 0

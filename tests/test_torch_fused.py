@@ -277,14 +277,17 @@ def test_entry_points_default_to_cuda_and_never_fall_back(flagship_tiny, monkeyp
 
 def test_unsupported_modes_raise_not_implemented(flagship_tiny):
     _, variables, _, _ = flagship_tiny
-    with pytest.raises(NotImplementedError, match="1c"):
-        FusedTransfer(variables, TPLAN, num_styles=2, device="cpu")
     with pytest.raises(NotImplementedError, match="1d"):
         FusedTransfer(variables, TPLAN, quant="int8", device="cpu")
     three = tplan(TConfig(resolution_divider=1, num_channels=17))
     assert three.num_contract_blocks == 3
     with pytest.raises(NotImplementedError, match="1e"):
         FusedTransfer(variables, three, device="cpu")
+    # the reference rejects dual style on this plan, before anything is built
+    with pytest.raises(ValueError, match="dual-style is not yet supported on the 3-contract"):
+        FusedTransfer(variables, three, num_styles=2, device="cpu")
+    with pytest.raises(ValueError, match="1 or 2 styles"):
+        FusedTransfer(variables, TPLAN, num_styles=3, device="cpu")
     with pytest.raises(NotImplementedError, match="EfficientNetV2-S"):
         TPredictor(10, "efficientnet")
     with pytest.raises(ValueError):
