@@ -7,8 +7,8 @@ dense, at the 700 W limit).  Nothing here runs on a device.
 
 ``python -m realtime_style_transfer_torch.ops.bounds`` prints the bound of each
 row of the kernel table in ``PERF.md``; ``chip_smoke.py`` uses
-:func:`conv_stage_work` and :func:`finish_work` for the per-launch bounds of
-the two kernels.
+:func:`conv_stage_work`, :func:`finish_work`, :func:`act_stats_work` and
+:func:`probe_work` for the per-launch bounds of the kernels.
 """
 
 from __future__ import annotations
@@ -32,13 +32,15 @@ def bound_ms(ops: float, n_bytes: float, kind: str = "bf16") -> Tuple[float, str
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def conv_stage_work(st, *, skip_in: bool, skip_out: bool,
-                    dual: bool = False) -> Tuple[float, float]:
-    """(FLOPs, bytes) of one ``conv_stage`` launch: MACs over the non-zero
-    weights only (padding and the transpose's structural zeros are free);
-    bytes of the input, the non-zero weights, the output and skips and, dual,
-    the (H, W) weight plane, bf16.  The prologue's few f32 operations per
-    input value are left out: the MACs outnumber them by the conv's K."""
+def conv_stage_work(st, *, skip_in: bool, skip_out: bool, dual: bool = False,
+                    weight_bytes: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one ``conv_stage`` launch: MACs over the
+    non-zero weights only (padding and the transpose's structural zeros are
+    free); bytes of the input, the non-zero weights (``weight_bytes`` each: 1
+    for an int8 stage, whose input stays bf16 in device memory), the output
+    and skips and, dual, the (H, W) weight plane, bf16.  The prologue's few
+    f32 operations per input value are left out: the MACs outnumber them by
+    the conv's K."""
     oh, ow = st.out_hw
     n_weights = int((st.w != 0).sum().item())
     macs = oh * ow * n_weights
@@ -49,8 +51,65 @@ def conv_stage_work(st, *, skip_in: bool, skip_out: bool,
     for d in st.out_shape:
         n_out *= d
     n_plane = st.in_hw[0] * st.in_hw[1] if dual else 0
-    n_bytes = 2 * (n_in * (1 + int(skip_in) + int(skip_out)) + n_weights + n_out + n_plane)
+    n_bytes = (2 * (n_in * (1 + int(skip_in) + int(skip_out)) + n_out + n_plane)
+               + weight_bytes * n_weights)
     return 2.0 * macs, float(n_bytes)
+
+
+def act_stats_work(h: int, w: int, c: int, *, affine: bool, skip_in: bool = False,
+                   dual: bool = False, check: bool = False) -> Tuple[float, float]:
+    """(f32 operations, bytes) of one ``act_stats`` launch over an (H, W, C)
+    bf16 stage input: read it (the stem reads the C logical channels of the
+    pack) and the skip and, dual, the (H, W) weight plane; write 2 x C words.
+    Per value: the affine (2), the blend (4), relu, skip, abs, max (1 each),
+    and the clip test (2)."""
+    n = h * w * c
+    ops = n * (2 * int(affine) + 4 * int(dual) + 2 * int(affine) + int(skip_in) + 2
+               + 2 * int(check))
+    n_bytes = 2 * n * (1 + int(skip_in)) + (2 * h * w if dual else 0) + 8 * c
+    return float(ops), float(n_bytes)
+
+
+def stage_inputs(plan: TransferPlan):
+    """(name, (H, W, C), affine, skip_in) of each conv stage's input, in order."""
+    h, w, c = plan.input_shape
+    out = []
+    for bi, (f, _k, s) in enumerate(plan.contract_schedule):
+        out.append((("stem", "c1", "c2")[bi], (h, w, c), False, False))
+        h, w, c = -(-h // s), -(-w // s), f
+    fb = plan.bottleneck_num_filters
+    for ri in range(NUM_RESIDUAL_BLOCKS):
+        for ci in range(2):
+            out.append((f"res{ri}{'ab'[ci]}", (h, w, c), ri + ci > 0, ci == 0 and ri >= 2))
+            c = fb
+    for ei, (f, _k, s) in enumerate(plan.expand_blocks[:-1]):
+        out.append((f"e{ei}", (h, w, c), True, ei == 0))
+        h, w, c = h * s, w * s, f
+    out.append(("final", (h, w, c), True, False))
+    return out
+
+
+def calibrate_frame_work(plan: TransferPlan, *, check: bool = False) -> Tuple[float, float]:
+    """(ops, bytes) of the ``act_stats`` launches of one calibrate (or
+    check) frame: one over each conv stage's input."""
+    ops = n_bytes = 0.0
+    for _name, (h, w, c), affine, skip in stage_inputs(plan):
+        o, b = act_stats_work(h, w, c, affine=affine, skip_in=skip, check=check)
+        ops, n_bytes = ops + o, n_bytes + b
+    return ops, n_bytes
+
+
+def probe_work(ks: int, nrep: int, quant: bool) -> Tuple[float, float]:
+    """(operations, bytes) of one probe launch: nrep times a (2400, 128) x
+    (128, 128) product per tap; the operands read once (the band reads its
+    12-row halo, bf16), the s32 or f32 result written once."""
+    m, c = 2400, 128
+    ops = 2.0 * m * c * c * ks * ks * nrep
+    if ks == 1:
+        n_in = m * c * (1 if quant else 2)
+    else:
+        n_in = 12 * 240 * c * 2
+    return ops, float(n_in + ks * ks * c * c * (1 if quant else 2) + 4 * m * c)
 
 
 def finish_work(h: int, w: int, c: int, out_c: int, *,
@@ -136,6 +195,9 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     ops8, bytes8 = frame_work(flagship, weight_bytes=1)
     rows["1d"] = bound_ms(ops8, bytes8, "int8") + (
         f"{ops8 / 1e9:.1f} GOP int8, {bytes8 / 1e6:.1f} MB",)
+    ops_c, bytes_c = calibrate_frame_work(flagship)
+    rows["1d-cal"] = bound_ms(ops_c, bytes_c, "f32") + (
+        f"calibrate pass of one frame: 16 act_stats launches, {bytes_c / 1e6:.1f} MB",)
     ops1, bytes1 = frame_work(divider1)
     rows["1e"] = bound_ms(ops1, bytes1) + (
         f"rst-1920-120-128-17 frame: {ops1 / 1e9:.1f} GFLOP bf16, {bytes1 / 1e6:.1f} MB",)

@@ -22,10 +22,30 @@ the same loop runs their plain versions.
 Chunk mode (:meth:`FusedTransfer.stylize_prepacked_chunk`) runs N frames with
 one host dispatch, the counterpart of the TPU kernel's ``grid=(N,)``: on CUDA
 the N-frame stage sequence is recorded once into a CUDA graph and replayed.
+
+int8 (``quant="int8"``) is the JAX package's deploy-mode post-training
+quantization: :meth:`FusedTransfer.calibrate_act_scales` records, on the bf16
+engine, the per-channel max |x'| of every conv stage's input; an engine built
+with those ``act_scales`` folds them into per-output-column int8 weights,
+quantizes each stage's input where it is made and dequantizes the int32 sums
+in the f32 epilogue; :meth:`FusedTransfer.check_act_saturation` measures how
+hard given scales clip.  The finish stays bf16/f32.
+
+**The scales table is the port's own layout**: ``(n_conv_stages, 128)`` f32,
+one row per entry of ``steps`` (16 on the flagship) with the first ``cin``
+entries used; the stem's 17 entries are the logical G-buffer channels.  The
+JAX table is ``(n_kernels, 512)`` over the TPU's packed (subpixel, channel)
+lanes, which mean nothing on the port's true-resolution NHWC stages, so a JAX
+scales file fails here at engine build with the shape error, and the reverse
+holds too.  ``check_act_saturation`` counts every input element once, so its
+``n_quantized`` is ``H * W * cin * frames``; the JAX kernel counts its
+band-halo rows twice.  The guard thresholds read ``max_ratio`` and the clip
+fraction, which do not depend on the tiling.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,6 +59,8 @@ from .image_ops import style_weight_mips
 from .kernels import (
     ConvStage,
     Prologue,
+    act_stats,
+    act_stats_plain,
     conv_stage,
     conv_stage_plain,
     finish,
@@ -61,6 +83,68 @@ def _np(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().float().numpy()
     return np.array(v, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# int8 deploy-scale provenance
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, path=""):
+    """(path, numpy array) of every leaf of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], f"{path}/{key}")
+    else:
+        a = tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+        yield path, a
+
+
+def _f32_bytes(v) -> bytes:
+    a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+    return np.ascontiguousarray(np.asarray(a, np.float32)).tobytes()
+
+
+def scales_fingerprint(variables, style_params, style_weights=None) -> str:
+    """Provenance hash of what int8 activation scales were calibrated against.
+
+    The scales are maxima of post-CIN-affine activations, so they are a
+    function of (transfer weights, style params[, dual weight map]); a file
+    deployed against another pair can saturate the ±127 clip.  sha256 over
+    each leaf of the flax tree by its path in sorted order (path, shape,
+    dtype, bytes), then the f32 style params and the f32 weight map.  The
+    digest differs from the JAX package's, which hashes ``str(treedef)``.
+    """
+    h = hashlib.sha256()
+    for path, a in _leaves(variables):
+        h.update(path.encode())
+        h.update(str((a.shape, str(a.dtype))).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(_f32_bytes(style_params))
+    if style_weights is not None:
+        h.update(_f32_bytes(style_weights))
+    return h.hexdigest()
+
+
+def save_act_scales(path, scales, fingerprint: Optional[str] = None) -> None:
+    """Write an int8 scales file (``.npz`` with keys ``scales`` and
+    ``fingerprint``) through an open handle, so the exact path is kept (a
+    bare ``np.savez`` would append ``.npz`` to ``foo.npy``)."""
+    with open(path, "wb") as f:
+        np.savez(f, scales=np.asarray(scales, np.float32),
+                 fingerprint=np.asarray(fingerprint or ""))
+
+
+def load_act_scales(path):
+    """Read a scales file -> (scales, fingerprint or None).  A bare ``.npy``
+    has no fingerprint: treat it as unverified and run
+    :meth:`FusedTransfer.check_act_saturation`."""
+    data = np.load(path, allow_pickle=False)
+    if hasattr(data, "files"):
+        scales = np.asarray(data["scales"], np.float32)
+        fp = str(data["fingerprint"]) if "fingerprint" in data.files else ""
+        return scales, (fp or None)
+    return np.asarray(data, np.float32), None
 
 
 class PreparedStyle(NamedTuple):
@@ -97,7 +181,9 @@ class FusedTransfer:
     ``variables`` is the flax tree of the transfer net (``{"params",
     "batch_stats"}``, optionally nested under ``"transfer"``) of numpy arrays
     or tensors; :func:`..weights.to_flax` makes one from a ``state_dict``.
-    The TPU-only layout knobs are accepted and ignored.
+    ``quant="int8"`` builds the int8 engine from ``act_scales``, the
+    ``(n_conv_stages, 128)`` table of :meth:`calibrate_act_scales`.  The
+    TPU-only layout knobs are accepted and ignored.
     """
 
     def __init__(self, variables, plan: TransferPlan, *, num_styles: int = 1,
@@ -129,13 +215,19 @@ class FusedTransfer:
                              f"(got {plan.bottleneck_num_filters})")
         if quant not in (None, "int8"):
             raise ValueError(f"quant must be None or 'int8', got {quant!r}")
-        if quant == "int8":
-            raise NotImplementedError(
-                "int8 (with calibrate/check) is not ported yet: ROADMAP.md "
-                "Queue 2 row 1d")
+        self.quant = quant == "int8"
+        if self.quant and act_scales is None:
+            raise ValueError("quant='int8' requires act_scales from "
+                             "calibrate_act_scales() on the bf16 engine")
         self.plan = plan
         self.num_styles = num_styles
         self.eps = float(cin_epsilon)
+        self.n_conv_stages = (len(plan.contract_schedule) + 2 * NUM_RESIDUAL_BLOCKS
+                              + plan.num_expand_blocks + 1)
+        self.act_scales = None
+        if self.quant:
+            self.act_scales = self._check_scales(act_scales, "per-channel maxima from "
+                                                 "calibrate_act_scales()")
         self.chunk_graphs: Dict[int, ChunkGraph] = {}
         h, w, _ = plan.input_shape
         self.hp, self.wp = h // 4, w // 4
@@ -147,6 +239,15 @@ class FusedTransfer:
         self._build(variables)
 
     # ---- host-side weight prep ------------------------------------------
+
+    def _check_scales(self, scales, what: str) -> np.ndarray:
+        scales = np.asarray(scales, np.float32)
+        want = (self.n_conv_stages, LANE)
+        if scales.shape != want:
+            raise ValueError(f"act_scales must be {want} {what} (the port's layout: one "
+                             f"row per conv stage, not the JAX package's (n, 512) lanes); "
+                             f"got {scales.shape}")
+        return scales
 
     def _build(self, variables) -> None:
         params = variables["params"]
@@ -169,6 +270,12 @@ class FusedTransfer:
         def same(hw, k, s):
             return same_pads(hw[0], k, s)[0], same_pads(hw[1], k, s)[0]
 
+        def scale_row(kernel):
+            """The int8 scales of the next conv stage's input, or None."""
+            if self.act_scales is None:
+                return None
+            return self.act_scales[len(steps), :kernel.shape[2]]
+
         steps: List[_Step] = []
         cur = (h, w)
         for bi, (_f, k, s) in enumerate(plan.contract_schedule):
@@ -179,7 +286,7 @@ class FusedTransfer:
                 ("stem", "c1", "c2")[bi], kernel, bias, in_hw=cur, out_hw=out_hw,
                 stride=s, pads=same(cur, k, s), epi="contract", device=dev,
                 pack_c=_round_up(16 * c_in, LANE) if bi == 0 else 0,
-                cscale=scale, cshift=shift)
+                cscale=scale, cshift=shift, act_scale=scale_row(kernel))
             steps.append(_Step(stage, -1, False, None, None, -1))
             cur = out_hw
 
@@ -195,7 +302,8 @@ class FusedTransfer:
                 is_a = ci == 0
                 stage = make_conv_stage(
                     f"res{ri}{'ab'[ci]}", kernel, bias, in_hw=cur, out_hw=cur,
-                    stride=1, pads=(1, 1), epi="relu", device=dev)
+                    stride=1, pads=(1, 1), epi="relu", device=dev,
+                    act_scale=scale_row(kernel))
                 steps.append(_Step(
                     stage, slot - 1 if slot > 0 else -1, not is_a,
                     ri % 2 if is_a and ri >= 2 else None,
@@ -214,7 +322,7 @@ class FusedTransfer:
             stage = make_conv_stage(
                 f"e{ei}", packed.numpy(), np.tile(bias, 4), in_hw=cur, out_hw=cur,
                 stride=1, pads=(pad_y[0], pad_x[0]), epi="bias", device=dev,
-                transpose_cout=cout)
+                transpose_cout=cout, act_scale=scale_row(kernel))
             steps.append(_Step(stage, slot - 1, ei > 0, skip_in, None, slot))
             skip_in = None
             cur = (2 * cur[0], 2 * cur[1])
@@ -226,13 +334,15 @@ class FusedTransfer:
         k = kernel.shape[0]
         slot = len(slot_channels)
         stage = make_conv_stage("final", kernel, bias, in_hw=cur, out_hw=cur,
-                                stride=1, pads=same(cur, k, 1), epi="bias", device=dev)
+                                stride=1, pads=same(cur, k, 1), epi="bias", device=dev,
+                                act_scale=scale_row(kernel))
         steps.append(_Step(stage, slot - 1, True, None, None, slot))
         slot_channels.append(kernel.shape[3])
         slot_counts.append(float(cur[0] * cur[1]))
         slot_hw.append(cur)
 
         self.steps: Tuple[_Step, ...] = tuple(steps)
+        assert len(steps) == self.n_conv_stages
         self._slot_channels = tuple(slot_channels)
         self._slot_counts = tuple(slot_counts)
         self._plane_hw = tuple(dict.fromkeys(slot_hw))  # distinct, in slot order
@@ -337,27 +447,120 @@ class FusedTransfer:
                         rows[0], rows[1], self.eps, relu, *dual)
 
     def _run_frame(self, packed: torch.Tensor, prepared: PreparedStyle,
-                   result: torch.Tensor, plain: bool) -> None:
+                   result: Optional[torch.Tensor], plain: bool,
+                   stats: Optional[list] = None,
+                   inv_rows: Optional[torch.Tensor] = None) -> None:
         """The stage loop of one frame pack on the engine's device into the
         packed (H/4, W/4, 128) bf16 ``result``; device work only, so a CUDA
-        graph can record it."""
+        graph can record it.  Given a ``stats`` list (calibrate and check),
+        an ``act_stats`` launch reads each conv stage's input first and
+        appends its (max, clips), under row i of ``inv_rows`` for stage i,
+        and the finish is skipped."""
         dev = self.device
         bf16 = torch.bfloat16
-        run_conv, run_finish = ((conv_stage_plain, finish_plain) if plain
-                                else (conv_stage, finish))
+        run_conv, run_finish, run_stats = (
+            (conv_stage_plain, finish_plain, act_stats_plain) if plain
+            else (conv_stage, finish, act_stats))
         self._moments.zero_()
         skips = [torch.empty(self._skip_shape, dtype=bf16, device=dev) for _ in range(2)]
         x = packed
-        for step in self.steps:
-            out = torch.empty(step.stage.out_shape, dtype=bf16, device=dev)
+        for i, step in enumerate(self.steps):
+            st = step.stage
+            prologue = None if step.src < 0 else self._prologue(prepared, step.src, step.in_relu)
+            skip_in = None if step.skip_in is None else skips[step.skip_in]
+            if stats is not None:
+                stats.append(run_stats(x, st, prologue, skip_in,
+                                       None if inv_rows is None else inv_rows[i, :st.cin]))
+            out = torch.empty(st.out_shape, dtype=bf16, device=dev)
             run_conv(
-                x, step.stage, out,
-                prologue=None if step.src < 0 else self._prologue(prepared, step.src, step.in_relu),
-                skip_in=None if step.skip_in is None else skips[step.skip_in],
+                x, st, out, prologue=prologue, skip_in=skip_in,
                 skip_out=None if step.skip_out is None else skips[step.skip_out],
                 stats_out=None if step.slot < 0 else self._moment_views[step.slot])
             x = out
-        run_finish(x, self._prologue(prepared, len(self._slot_channels) - 1, False), result)
+        if stats is None:
+            run_finish(x, self._prologue(prepared, len(self._slot_channels) - 1, False), result)
+
+    # ---- int8 calibrate and check ---------------------------------------------
+
+    def _act_stats(self, packed_frames, prepared: PreparedStyle,
+                   inv_rows: Optional[np.ndarray], plain: bool):
+        """The stage loop over ``packed_frames`` with ``act_stats`` before
+        each conv stage -> ((n_conv_stages, 128) maxima, the same shape of
+        clip counts, frame count)."""
+        self._check_prepared(prepared)
+        n, dev = self.n_conv_stages, self.device
+        maxima = np.zeros((n, LANE), np.float32)
+        clips = np.zeros((n, LANE), np.int64)
+        inv = None if inv_rows is None else torch.tensor(inv_rows, device=dev)
+        frames = 0
+        for packed in packed_frames:
+            stats: list = []
+            self._run_frame(packed.to(dev, non_blocking=True), prepared, None, plain,
+                            stats, inv)
+            for i, (m, c) in enumerate(stats):
+                cin = m.numel()
+                maxima[i, :cin] = np.maximum(maxima[i, :cin], m.cpu().numpy())
+                clips[i, :cin] += c.cpu().numpy()
+            frames += 1
+        return maxima, clips, frames
+
+    def calibrate_act_scales(self, packed_frames, prepared: PreparedStyle, *,
+                             plain: bool = False) -> np.ndarray:
+        """Per conv stage and input channel, the max |x'| of the exact value
+        its conv quantizes (after the CIN affine, ReLU and skip, bf16), over
+        the frame packs ``packed_frames`` -> ``(n_conv_stages, 128)`` f32 to
+        pass as ``act_scales`` to an int8 engine.  Runs on the bf16 engine.
+
+        The scales are per (checkpoint, style): the maxima come after the
+        CIN affine, whose rows are ``prepared``'s.  For several styles,
+        calibrate once per style and ``np.maximum`` the tables.  ``plain``
+        runs the plain versions of the kernels.
+        """
+        if self.quant:
+            raise ValueError("calibrate on the bf16 engine, not a quant one")
+        maxima, _, frames = self._act_stats(packed_frames, prepared, None, plain)
+        if frames == 0:
+            raise ValueError("need at least one calibration frame")
+        return maxima
+
+    def _act_inv_rows(self, scales: np.ndarray) -> np.ndarray:
+        """Per-stage ``127 / s_c`` rows, as the int8 engine quantizes with."""
+        rows = np.zeros((self.n_conv_stages, LANE), np.float32)
+        for i, step in enumerate(self.steps):
+            cin = step.stage.cin
+            rows[i, :cin] = 127.0 / np.maximum(scales[i, :cin], 1e-6)
+        return rows
+
+    def check_act_saturation(self, packed_frames, prepared: PreparedStyle,
+                             act_scales) -> List[dict]:
+        """How hard the given int8 ``act_scales`` would clip on these frames,
+        with the deploy style table ``prepared``; runs on the bf16 engine.
+
+        Returns one dict a conv stage: ``{"stage", "max_ratio",
+        "clip_events", "n_quantized"}``; ``max_ratio`` is ``max_c(max|x'|_c
+        / scale_c)`` (above 1 clips) and ``clip_events / n_quantized`` the
+        clip fraction.  Every input element counts once: ``n_quantized`` is
+        ``H * W * cin * frames`` (the JAX kernel counts band halos twice).
+        """
+        if self.quant:
+            raise ValueError("check saturation on the bf16 engine, not a quant one")
+        scales = self._check_scales(act_scales, "per-channel scales")
+        maxima, clips, frames = self._act_stats(packed_frames, prepared,
+                                                self._act_inv_rows(scales), False)
+        if frames == 0:
+            raise ValueError("need at least one frame to check")
+        report = []
+        for i, step in enumerate(self.steps):
+            st = step.stage
+            h, w = st.in_hw
+            report.append({
+                "stage": st.name,
+                "max_ratio": float(np.max(maxima[i, :st.cin]
+                                          / np.maximum(scales[i, :st.cin], 1e-6))),
+                "clip_events": int(clips[i].sum()),
+                "n_quantized": h * w * st.cin * frames,
+            })
+        return report
 
     def stylize_prepacked_raw(self, packed: torch.Tensor, prepared: PreparedStyle, *,
                               plain: bool = False) -> torch.Tensor:

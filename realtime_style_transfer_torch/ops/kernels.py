@@ -5,9 +5,13 @@ replace the TPU kernel ``FusedTransfer._kernel_impl``
 (``realtime_style_transfer_tpu/ops/pallas/fused_transfer.py``): its conv
 stages (``run_conv`` / ``run_conv_direct`` with ``fold_cin_affine``) and its
 ``run_pointwise`` finish, single or dual style (``fold_cin_affine``'s delta
-rows and the per-pixel blend).  The TPU kernel runs all stages in one launch;
-here each stage is one launch, because CIN moments are whole-frame sums and
-blocks on a GPU cannot wait for each other inside a launch.
+rows and the per-pixel blend), bf16 or int8 (the ``quant='int8'`` engine:
+per-input-channel activation scales folded into per-output-column int8
+weights, the input quantized where it is made, int32 sums dequantized in the
+f32 epilogue).  ``act_stats`` (``csrc/act_stats.cu``) replaces its calibrate
+and check modes.  The TPU kernel runs all stages in one launch; here each
+stage is one launch, because CIN moments are whole-frame sums and blocks on a
+GPU cannot wait for each other inside a launch.
 
 Bounds on the H100, from the flagship's shapes: the conv stages are bound by
 operations (about 127 GFLOP against 0.35 GB a frame), so the kernel keeps
@@ -17,15 +21,14 @@ through device memory.  What the kernel meets first is L2 traffic, because
 every block reads the whole weight matrix: the 9x9 stages read their MMA
 operands from a shared-memory input window four output rows tall, the others
 gather A tiles in blocks of 128 pixels (``PERF.md`` has the measurements).
-``finish`` is one elementwise pass, bound by bytes: it reads and writes each
-element once.
+``finish`` and ``act_stats`` are one elementwise pass each, bound by bytes.
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to the
 plain PyTorch version (same signature, same rounding points: bf16 storage,
-f32 affine, f32 moments taken before rounding), a CUDA tensor launches the
-kernel or raises.  Each wrapper's ``launches`` counts kernel launches only
-(a launch recorded into a CUDA graph counts once, when it is recorded);
-:func:`replay_graph` counts the replays of such a graph.
+f32 affine, f32 moments taken before rounding; int8 sums exact in float64), a
+CUDA tensor launches the kernel or raises.  Each wrapper's ``launches`` counts
+kernel launches only (a launch recorded into a CUDA graph counts once, when it
+is recorded); :func:`replay_graph` counts the replays of such a graph.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
@@ -52,17 +55,21 @@ from .packed_conv import pack, unpack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rst_torch_kernels"
-SOURCES = ("conv_stage.cu", "finish.cu")
+SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BK = 32          # reduction slice of conv_stage.cu: K is padded to it
+Q_CIN_ALIGN = 32  # an int8 window stage pads cin_k to it: one tap a k32 slice
 MAX_CIN = 128    # widest CIN prologue conv_stage.cu holds in shared memory
 EPI = {"contract": 0, "relu": 1, "bias": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "rst_conv_stage": [_P] * 12 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19 + [_P],
+    "rst_conv_stage": ([_P] * 12 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19
+                       + [_P, _P, _I, _P]),
     "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 4 + [_P],
+    "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -84,7 +91,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    text = (CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha1(text).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
@@ -180,11 +188,16 @@ class ConvStage:
     columns are parity classes, stored through depth-to-space.  A ``window``
     stage (stride 1, more than 9 taps) reads its MMA fragments from a
     shared-memory input window, with channels padded to ``cin_k``, a multiple
-    of 16; the other stages gather A tiles through ``kmap``.
+    of 16 (of 32 for an int8 stage); the other stages gather A tiles through
+    ``kmap``.
+
+    An int8 (``quant``) stage holds int8 weights with the activation scales
+    folded in, ``dequant = s_w / 127`` per output column and ``act_inv =
+    127 / s_c`` per input channel (``fused_transfer.py:768-780``).
     """
 
     name: str
-    w: torch.Tensor          # (n, k_pad) bf16, k = (ty * kw + tx) * cin_k + c
+    w: torch.Tensor          # (n, k_pad) bf16 (int8 if quant), k = (ty * kw + tx) * cin_k + c
     kmap: Optional[torch.Tensor]  # gather path: (k_pad,) int32, (ty << 20) |
                              # (tx << 10) | c, -1 for padding
     bias: torch.Tensor       # (n,) f32
@@ -205,13 +218,16 @@ class ConvStage:
     epi: str
     cin_k: int               # channel stride of the K index
     window: bool
+    quant: bool = False
+    dequant: Optional[torch.Tensor] = None  # (n,) f32, int8 only
+    act_inv: Optional[torch.Tensor] = None  # (cin,) f32, int8 only
 
     @property
     def k_real(self) -> int:
         return self.kh * self.kw * self.cin_k
 
     def weight_oihw(self) -> torch.Tensor:
-        """The stage's bf16 weights as an f32 OIHW tensor."""
+        """The stage's bf16 (or int8) weights as an f32 OIHW tensor."""
         w = self.w[:, :self.k_real].float().reshape(self.n, self.kh, self.kw, self.cin_k)
         return w[..., :self.cin].permute(0, 3, 1, 2)
 
@@ -234,14 +250,31 @@ class ConvStage:
         return min(128, max(8, 1 << (self.n - 1).bit_length()))
 
 
+def quantize_kernel(kernel: np.ndarray, act_scale) -> Tuple[np.ndarray, np.ndarray,
+                                                               np.ndarray]:
+    """HWIO f32 ``kernel`` and its input's (cin,) activation scales -> (int8
+    kernel, (cout,) dequant row, (cin,) act_inv row), as the JAX package's
+    int8 engine builds them (``fused_transfer.py:768-780``): the scales fold
+    into the cin rows, then symmetric per-output-column int8 scales."""
+    kernel = np.asarray(kernel, np.float32)
+    s_c = np.maximum(np.asarray(act_scale, np.float32)[:kernel.shape[2]], 1e-6)
+    k_scaled = kernel * s_c[None, None, :, None]
+    s_w = np.abs(k_scaled).reshape(-1, kernel.shape[3]).max(axis=0)
+    s_w = np.maximum(s_w / 127.0, 1e-12)
+    q = np.clip(np.rint(k_scaled / s_w), -127, 127).astype(np.int8)
+    return q, (s_w / 127.0).astype(np.float32), (127.0 / s_c).astype(np.float32)
+
+
 def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
                     in_hw, out_hw, stride: int, pads: Tuple[int, int], epi: str,
                     device, pack_c: int = 0, transpose_cout: int = 0,
-                    cscale=None, cshift=None) -> ConvStage:
+                    cscale=None, cshift=None, act_scale=None) -> ConvStage:
     """Lay out an HWIO ``kernel`` (f32 numpy) as a stage's operands.
 
     Stride-1 stages with more than 9 taps take the window path; the others
-    gather, which needs ``cin % 8 == 0`` and an NHWC input.
+    gather, which needs ``cin % 8 == 0`` and an NHWC input.  Given the
+    ``(cin,)`` activation scales of its input, ``act_scale``, the stage is
+    int8 (:func:`quantize_kernel`).
     """
     kh, kw, cin, n = kernel.shape
     if epi not in EPI:
@@ -250,7 +283,15 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
     if not window and (pack_c or cin % 8):
         raise ValueError(f"{name}: the gather path needs an NHWC input with "
                          f"cin % 8 == 0, got cin={cin}, pack_c={pack_c}")
-    cin_k = -(-cin // 16) * 16 if window else cin
+    quant = act_scale is not None
+    dequant = act_inv = None
+    if quant:
+        if np.shape(act_scale) != (cin,):
+            raise ValueError(f"{name}: act_scale must be per-input-channel ({cin},), "
+                             f"got {np.shape(act_scale)}")
+        kernel, dequant, act_inv = quantize_kernel(kernel, act_scale)
+    align = Q_CIN_ALIGN if quant else 16
+    cin_k = -(-cin // align) * align if window else cin
     k_real = kh * kw * cin_k
     k_pad = -(-k_real // BK) * BK
     padded = np.zeros((kh, kw, cin_k, n), np.float32)
@@ -270,13 +311,13 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
         raise ValueError(f"{name}: contract scale/shift go with epi='contract'")
     return ConvStage(
         name=name,
-        w=torch.tensor(w, device=device).to(torch.bfloat16),
+        w=torch.tensor(w, device=device).to(torch.int8 if quant else torch.bfloat16),
         kmap=None if kmap is None else torch.tensor(kmap, device=device),
         bias=f32(bias), cscale=f32(cscale), cshift=f32(cshift),
         in_hw=tuple(in_hw), cin=cin, pack_c=pack_c, out_hw=tuple(out_hw),
         n=n, c_log=transpose_cout or n, kh=kh, kw=kw, stride=stride,
         pad_top=pads[0], pad_left=pads[1], transpose=transpose_cout > 0, epi=epi,
-        cin_k=cin_k, window=window,
+        cin_k=cin_k, window=window, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
     )
 
 
@@ -289,8 +330,11 @@ def fold_cin(pro: Prologue):
     """Moments + style rows -> the per-channel affine (a, b) and, dual, the
     second style's affine minus the first's (da, db), all f32; (da, db) are
     None for one style."""
-    mean = pro.stats[0] / pro.count
-    var = pro.stats[1] / pro.count - mean * mean
+    # divide by a tensor on the stats' device: CUDA divides by a host scalar
+    # as a product with its reciprocal, the kernels (and the CPU) truly divide
+    count = pro.stats.new_tensor(pro.count)
+    mean = pro.stats[0] / count
+    var = pro.stats[1] / count - mean * mean
     inv = torch.reciprocal(torch.sqrt(var + pro.eps))
     a = pro.scale * inv
     b = pro.bias - mean * a
@@ -316,31 +360,54 @@ def unpack_frame(packed: torch.Tensor, c: int) -> torch.Tensor:
     return unpack(packed[None, :, :, :16 * c], 4, c)[0]
 
 
+def stage_input(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
+                skip_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x' of a stage, the (H, W, cin) bf16 value its conv reads: the input
+    (the stem's frame pack unpacked) after the CIN affine, ReLU and skip."""
+    xb = unpack_frame(x, st.cin) if st.pack_c else x
+    if prologue is None and skip_in is None:
+        return xb
+    xf = xb.float()
+    if prologue is not None:
+        xf = cin_affine(xf, prologue)
+        if prologue.relu:
+            xf = torch.relu(xf)
+    if skip_in is not None:
+        xf = xf + skip_in.float()
+    return xf.to(torch.bfloat16)
+
+
+def quantize_plain(xb: torch.Tensor, act_inv: torch.Tensor) -> torch.Tensor:
+    """clamp(round(f32(x') * act_inv), -127, 127), ties to even, as f32."""
+    return torch.round(xb.float() * act_inv).clamp_(-127.0, 127.0)
+
+
 def conv_stage_plain(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
                      prologue: Optional[Prologue] = None,
                      skip_in: Optional[torch.Tensor] = None,
                      skip_out: Optional[torch.Tensor] = None,
                      stats_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version of :func:`conv_stage`."""
+    """The plain version of :func:`conv_stage`.  An int8 stage quantizes x'
+    (zero padding stays zero) and convolves the integer values in float64,
+    where every sum is exact; the result rounds once to f32 before the
+    dequant, as the kernel's int32 sum does."""
     h, w = st.in_hw
-    xf = (unpack_frame(x, st.cin) if st.pack_c else x).float()
-    if prologue is not None or skip_in is not None:
-        if prologue is not None:
-            xf = cin_affine(xf, prologue)
-            if prologue.relu:
-                xf = torch.relu(xf)
-        if skip_in is not None:
-            xf = xf + skip_in.float()
-        xb = xf.to(torch.bfloat16)
-        if skip_out is not None:
-            skip_out.copy_(xb)
-        xf = xb.float()
+    xb = stage_input(x, st, prologue, skip_in)
+    if skip_out is not None:
+        skip_out.copy_(xb)
     oh, ow = st.out_hw
     pad_bottom = (oh - 1) * st.stride + st.kh - h - st.pad_top
     pad_right = (ow - 1) * st.stride + st.kw - w - st.pad_left
-    xp = F.pad(xf.permute(2, 0, 1)[None],
-               (st.pad_left, pad_right, st.pad_top, pad_bottom))
-    v = F.conv2d(xp, st.weight_oihw(), stride=st.stride)[0].permute(1, 2, 0)
+    pads = (st.pad_left, pad_right, st.pad_top, pad_bottom)
+    if st.quant:
+        xp = F.pad(quantize_plain(xb, st.act_inv).permute(2, 0, 1)[None].double(), pads)
+        # no cuDNN: its FFT and Winograd algorithms would not keep the sums exact
+        with torch.backends.cudnn.flags(enabled=False):
+            acc = F.conv2d(xp, st.weight_oihw().double(), stride=st.stride)
+        v = acc[0].permute(1, 2, 0).float() * st.dequant
+    else:
+        xp = F.pad(xb.float().permute(2, 0, 1)[None], pads)
+        v = F.conv2d(xp, st.weight_oihw(), stride=st.stride)[0].permute(1, 2, 0)
     v = v + st.bias
     if st.epi == "contract":
         v = torch.relu(torch.relu(v) * st.cscale + st.cshift)
@@ -352,6 +419,19 @@ def conv_stage_plain(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     y = v.to(torch.bfloat16)
     out.copy_(depth_to_space_2x(y[None], st.c_log)[0] if st.transpose else y)
     return out
+
+
+def act_stats_plain(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
+                    skip_in: Optional[torch.Tensor] = None,
+                    act_inv: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`act_stats`: per input channel of ``st``,
+    the max of |x'| (f32) and, given the ``act_inv`` row, the count of values
+    with ``|x'| * act_inv > 127.5`` (int32), each element counted once."""
+    a = stage_input(x, st, prologue, skip_in).float().abs().reshape(-1, st.cin)
+    clips = (torch.zeros(st.cin, dtype=torch.int32, device=x.device) if act_inv is None
+             else (a * act_inv > 127.5).sum(dim=0, dtype=torch.int32))
+    return a.amax(dim=0), clips
 
 
 def finish_plain(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tensor:
@@ -374,6 +454,22 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: want a contiguous 16-byte-aligned tensor")
+
+
+def _check_stage_inputs(x, st: ConvStage, prologue: Optional[Prologue],
+                        skip_in: Optional[torch.Tensor]) -> None:
+    """The checks :func:`conv_stage` and :func:`act_stats` share: the input,
+    the prologue and the incoming skip of stage ``st``."""
+    dev = x.device
+    _check(x, f"{st.name} input", torch.bfloat16, st.in_shape, dev)
+    if st.pack_c and (prologue is not None or skip_in is not None):
+        raise ValueError(f"{st.name}: a pack-input stage takes no prologue or skips")
+    if skip_in is not None:
+        _check(skip_in, f"{st.name} skip_in", torch.bfloat16, st.in_shape, dev)
+    if prologue is not None:
+        if st.cin > MAX_CIN:
+            raise ValueError(f"{st.name}: a CIN prologue takes <= {MAX_CIN} channels")
+        _check_prologue(prologue, st.name, st.cin, st.in_hw, dev)
 
 
 def _check_prologue(pro: Prologue, name: str, c: int, hw, device) -> None:
@@ -411,24 +507,17 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
         raise ValueError(f"conv_stage runs on CUDA or the CPU, not {x.device}")
     dev = x.device
     bf16, f32 = torch.bfloat16, torch.float32
-    _check(x, f"{st.name} input", bf16, st.in_shape, dev)
+    _check_stage_inputs(x, st, prologue, skip_in)
     _check(out, f"{st.name} output", bf16, st.out_shape, dev)
-    if st.pack_c and (prologue is not None or skip_in is not None):
-        raise ValueError(f"{st.name}: a pack-input stage takes no prologue or skips")
     if skip_out is not None and st.window:
         raise ValueError(f"{st.name}: the window path writes no skip_out")
-    for name, t in (("skip_in", skip_in), ("skip_out", skip_out)):
-        if t is not None:
-            _check(t, f"{st.name} {name}", bf16, st.in_shape, dev)
+    if skip_out is not None:
+        _check(skip_out, f"{st.name} skip_out", bf16, st.in_shape, dev)
     if skip_out is not None and (st.stride != 1 or st.transpose
                                  or (st.pad_top, st.pad_left) != (st.kh // 2, st.kw // 2)):
         raise ValueError(f"{st.name}: skip_out needs a stride-1 centred conv")
     if stats_out is not None:
         _check(stats_out, f"{st.name} stats_out", f32, (2, st.c_log), dev)
-    if prologue is not None:
-        if st.cin > MAX_CIN:
-            raise ValueError(f"{st.name}: a CIN prologue takes <= {MAX_CIN} channels")
-        _check_prologue(prologue, st.name, st.cin, st.in_hw, dev)
     oh, ow = st.out_hw
     err = _lib("conv_stage.cu").rst_conv_stage(
         _ptr(x), _ptr(st.w), _ptr(st.kmap), _ptr(st.bias), _ptr(st.cscale),
@@ -440,7 +529,7 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
         st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, oh, ow, st.n,
         st.w.shape[1], st.kh, st.kw, st.stride, st.pad_top, st.pad_left, st.c_log,
         int(st.transpose), EPI[st.epi], st.cin_k, int(st.window), st.block_n,
-        _stream(x))
+        _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _stream(x))
     if err:
         raise RuntimeError(f"conv_stage {st.name}: CUDA error {err} at launch")
     conv_stage.launches += 1
@@ -448,6 +537,39 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
 
 
 conv_stage.launches = 0
+
+
+def act_stats(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
+              skip_in: Optional[torch.Tensor] = None,
+              act_inv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per input channel of stage ``st`` on its input ``x`` (with the
+    stage's prologue and skip): (max |x'| f32, clip count int32 under the
+    ``act_inv`` row, zeros without it)."""
+    if x.device.type == "cpu":
+        return act_stats_plain(x, st, prologue, skip_in, act_inv)
+    if x.device.type != "cuda":
+        raise ValueError(f"act_stats runs on CUDA or the CPU, not {x.device}")
+    dev = x.device
+    _check_stage_inputs(x, st, prologue, skip_in)
+    if act_inv is not None:
+        _check(act_inv, f"{st.name} act_inv", torch.float32, (st.cin,), dev)
+    maxima = torch.zeros(st.cin, dtype=torch.float32, device=dev)
+    clips = torch.zeros(st.cin, dtype=torch.int32, device=dev)
+    err = _lib("act_stats.cu").rst_act_stats(
+        _ptr(x), *_prologue_args(prologue),
+        float(prologue.count) if prologue else 1.0,
+        float(prologue.eps) if prologue else 0.0,
+        int(prologue is not None), int(bool(prologue and prologue.relu)),
+        _ptr(skip_in), _ptr(act_inv), _ptr(maxima),
+        None if act_inv is None else _ptr(clips),
+        st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, _stream(x))
+    if err:
+        raise RuntimeError(f"act_stats {st.name}: CUDA error {err} at launch")
+    act_stats.launches += 1
+    return maxima, clips
+
+
+act_stats.launches = 0
 
 
 def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tensor:
@@ -490,4 +612,5 @@ replay_graph.replays = 0
 def reset_launch_counts() -> None:
     conv_stage.launches = 0
     finish.launches = 0
+    act_stats.launches = 0
     replay_graph.replays = 0

@@ -326,7 +326,9 @@ def test_argtypes_follow_the_extern_c_signatures():
         for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{', text, re.S):
             found[name] = [_CTYPES[" ".join(re.sub(r"\w+$", "", p.strip()).split())]
                            for p in params.split(",")]
-    assert set(found) == set(kernels._ARGTYPES) == {"rst_conv_stage", "rst_finish"}
+    assert set(found) == set(kernels._ARGTYPES) == {"rst_conv_stage", "rst_finish",
+                                                    "rst_act_stats", "rst_probe"}
     for name, types in found.items():
         assert kernels._ARGTYPES[name] == types, name
-    assert len(found["rst_conv_stage"]) == 40 and len(found["rst_finish"]) == 15
+    assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",
+                                    "rst_probe")] == [43, 15, 20, 10]

@@ -277,7 +277,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(flagship_tiny, monkeyp
 
 def test_unsupported_modes_raise_not_implemented(flagship_tiny):
     _, variables, _, _ = flagship_tiny
-    with pytest.raises(NotImplementedError, match="1d"):
+    # int8 is ported: without act_scales it raises the JAX package's ValueError
+    with pytest.raises(ValueError, match="act_scales"):
         FusedTransfer(variables, TPLAN, quant="int8", device="cpu")
     three = tplan(TConfig(resolution_divider=1, num_channels=17))
     assert three.num_contract_blocks == 3
