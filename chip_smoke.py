@@ -4,9 +4,8 @@
 Run from the repository root: ``python3 chip_smoke.py``.
 
 1. Builds the CUDA kernels (``nvcc``, one process per source: conv_stage,
-   finish, act_stats, probe_int8) and prints the build time and the ptxas
-   report (registers, shared memory, spills) of every instantiation, the int8
-   ones and ``act_stats`` included.
+   finish, act_stats, probe_int8, probe_repack) and prints the build time and
+   the ptxas report (registers, shared memory, spills) of every instantiation.
 2. Holds every stage kernel of the rst-960-120-128-17 frame against its plain
    PyTorch version on the card, on seeded inputs at the stage's real shapes:
    bf16 outputs within rtol 1.6e-2 (two bf16 ulps) + atol 1e-2 * max|ref|,
@@ -61,6 +60,30 @@ Run from the repository root: ``python3 chip_smoke.py``.
    paths, the predictor's time for one and two styles, the int8 and dual int8
    frame, the int8 chunk per frame, calibration a frame and the int8 video
    loop's host latency, each beside the card's name and power limit.
+5. The divider-1 plan, rst-1920-120-128-17 (960x1920x17 frames, a 120x240x128
+   bottleneck, 2678 style params), at full width and depth with seeded
+   weights: the engine must be ``three_seg`` with 18 conv stages and refuse
+   two styles with the JAX package's ValueError.  Every stage (stem, c1, c2,
+   c3, the residual core, e0, e1, e2, final) and the finish is held against
+   its plain version with phase 2's limits, bf16 and int8, and timed beside
+   its bound and ``F.conv2d`` bf16.  Then the main path at 1920 as in phase 3,
+   single style: 8 frames through ``stylize_video`` in bf16 (held against the
+   eager f32 net and the plain bf16 composition), calibration on 4 frames
+   (kernels against plain), 8 frames through ``stylize_video(quant="int8")``
+   (the JAX int8 bar against the bf16 kernel path, the plain int8
+   composition), the saturation check, 8-frame chunks in bf16 (phase 2's
+   limits) and int8 (the frame limit, rtol 0.05 + atol 0.02, median < 5e-3:
+   two runs of the int8 chain differ by whole int8 steps where a float-atomic
+   moment flips a rounding, up to 10 bf16 ulps at this size), the
+   launch counts (18 ``conv_stage`` and 1 ``finish`` a frame; 18 ``act_stats``
+   a calibrate or check frame), and its times: frame, chunk, calibration,
+   predictor, and the video loop's host latency, bf16 and int8.
+6. The repack probe (``ops/probe_repack.py``): deinterleave, interleave,
+   fold2 and unfold2 at the TPU probe's shapes and fold2 / unfold2 of the
+   rst-1920 c2 output, each bit-equal to its plain version and timed beside
+   its bytes bound and one strided PyTorch copy; then ``F.instance_norm`` and
+   a VALID 3x3 ``F.conv2d`` at the bottleneck's shape, timed as the library
+   yardsticks of TPU kernel rows 2 and 3.
 
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
@@ -77,11 +100,15 @@ import time
 import numpy as np
 
 SPEC = "rst-960-120-128-17"
+SPEC_1920 = "rst-1920-120-128-17"
 N_FRAMES = 8
+N_CAL = 4
 SEED = 0
 TPU_KERNEL = "realtime_style_transfer_tpu/ops/pallas/fused_transfer.py"
 SOURCES = "realtime_style_transfer_torch/csrc"
 PROBE = "tools/probe_int8_mxu.py"
+REPACK_PROBE = "tools/probe_repack_ops.py"
+DUAL_REFUSAL = "dual-style is not yet supported on the 3-contract"
 
 
 def gpu_line() -> str:
@@ -101,9 +128,10 @@ def main() -> int:
 
     from realtime_style_transfer_torch.config import ShapeConfig
     from realtime_style_transfer_torch.models.inference import make_inference_model
-    from realtime_style_transfer_torch.ops import kernels, probe_int8
+    from realtime_style_transfer_torch.ops import kernels, probe_int8, probe_repack
     from realtime_style_transfer_torch.ops.bounds import (
-        PEAK_FLOPS, act_stats_work, bound_ms, conv_stage_work, finish_work, probe_work)
+        PEAK_FLOPS, act_stats_work, bound_ms, conv_stage_work, finish_work, probe_work,
+        repack_work)
     from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
     from realtime_style_transfer_torch.ops.kernels import (
         Prologue, act_stats, act_stats_plain, conv_stage, conv_stage_plain, finish,
@@ -119,6 +147,7 @@ def main() -> int:
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     failures = []
+    t_start = time.perf_counter()
 
     def note(line: str) -> None:
         print(f"[{gpu}] {line}", flush=True)
@@ -162,6 +191,19 @@ def main() -> int:
             failures.append(name)
         return err.max().item()
 
+    def close_frame(name, got, ref) -> float:
+        """The port's kernel-vs-plain frame limit: rtol 0.05 + atol 0.02,
+        median < 5e-3."""
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs()
+        ok = bool((err <= 0.02 + 0.05 * ref.abs()).all()) and err.median().item() < 5e-3 \
+            and bool(torch.isfinite(got).all())
+        print(f"  {name}: max_abs_err={err.max().item():.3e} median={err.median().item():.3e} "
+              f"limit=rtol 0.05 + atol 0.02, median < 5e-3 {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+        return err.max().item()
+
     def check_launches(label, per_frame, frames, extra=None):
         launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
                     "act_stats": kernels.act_stats.launches}
@@ -172,6 +214,11 @@ def main() -> int:
         if launches != want:
             failures.append(f"{label} launch counts")
         return launches
+
+    def failed(phase: str) -> bool:
+        if failures:
+            print(f"FAILED {phase}: {failures}")
+        return bool(failures)
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -200,7 +247,6 @@ def main() -> int:
     # ---- phase 2: each stage kernel against its plain version ---------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     eps = fused.eps
-    rows = []
 
     def prologue_for(x, cin, relu, hw, dual=False):
         xf = x.float().reshape(-1, cin)
@@ -214,10 +260,14 @@ def main() -> int:
                       torch.rand(hw, generator=gen, device=dev).to(bf16))
         return Prologue(stats, float(xf.shape[0]), scale, bias, eps, relu, *second)
 
-    def check_stage(label, step, relu_override=None, dual=False):
+    def check_stage(engine, label, step, relu_override=None, dual=False):
+        """One stage of ``engine`` against its plain version on seeded inputs
+        at its real shapes, then timed beside its plain version, its bound
+        and (bf16, single style) ``F.conv2d``."""
         st = step.stage
         if st.pack_c:
-            x = fused.pack_frame(torch.rand((1,) + plan.input_shape, generator=gen, device=dev))
+            x = engine.pack_frame(torch.rand((1,) + engine.plan.input_shape, generator=gen,
+                                             device=dev))
         else:
             x = torch.rand(st.in_shape, generator=gen, device=dev).to(bf16)
         relu = step.in_relu if relu_override is None else relu_override
@@ -250,9 +300,17 @@ def main() -> int:
             err = close(f"{label} out", ko, po, 1.6e-2, 1e-2)
             if ks is not None:
                 err = max(err, close(f"{label} skip_out", ks, ps, 1.6e-2, 1e-2))
+        moments_rel = None
         if kst is not None:
             close(f"{label} sums", kst[0], pst[0], 1e-3, 1e-3)
             close(f"{label} sums of squares", kst[1], pst[1], 1e-3, 1e-3)
+            # sums of squares are positive: relative to each; sums relative to the largest
+            moments_rel = (((kst[1] - pst[1]).abs() / pst[1].abs().clamp_min(1e-30)).max().item(),
+                           (kst[0] - pst[0]).abs().max().item()
+                           / max(pst[0].abs().max().item(), 1e-30))
+            print(f"  {label} moments: {int(st.out_hw[0] * st.out_hw[1] * st.n / st.c_log)} "
+                  f"values a channel; max relative difference: sums of squares "
+                  f"{moments_rel[0]:.3e}, sums {moments_rel[1]:.3e} (of the largest)")
         stats_row = None
         if st.quant:
             # act_stats on the same input, prologue and skip, under the stage's act_inv
@@ -309,18 +367,11 @@ def main() -> int:
                 f"bound {max(stats_row['ops_ms'], stats_row['bytes_ms']):.4f} ms"
                 if stats_row else ""))
         return dict(err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    ops_ms=ops_ms, bytes_ms=bytes_ms, stats=stats_row)
+                    ops_ms=ops_ms, bytes_ms=bytes_ms, stats=stats_row, moments_rel=moments_rel)
 
-    print("phase 2: stage kernels vs plain versions", flush=True)
-    for step in fused.steps:
-        rows.append(check_stage(step.stage.name, step))
-    res2a = next(s for s in fused.steps if s.stage.name == "res2a")
-    extra = check_stage("res2a with affine+relu+skip", res2a, relu_override=True)
-
-    h, w = plan.input_shape[:2]
-    xf = (torch.randn((h, w, 3), generator=gen, device=dev) * 2.0).to(bf16)
-
-    def check_finish(label, pro):
+    def check_finish(label, xf, pro):
+        """The finish on the (H, W, 3) ``xf`` against its plain version, timed."""
+        h, w = xf.shape[:2]
         fin = {}
         for side, fn in (("kernel", finish), ("plain", finish_plain)):
             fin[side] = torch.empty((h // 4, w // 4, 128), dtype=bf16, device=dev)
@@ -338,39 +389,47 @@ def main() -> int:
              f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
         return dict(err=err, ms=ms, plain_ms=plain_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
 
-    fin = check_finish("finish", prologue_for(xf, 3, False, (h, w)))
+    def seeded_scales(engine):
+        return (np.random.default_rng(SEED + 1).random((engine.n_conv_stages, 128))
+                * 2.5 + 0.5).astype(np.float32)
+
+    print("phase 2: stage kernels vs plain versions", flush=True)
+    rows = [check_stage(fused, step.stage.name, step) for step in fused.steps]
+    res2a = next(s for s in fused.steps if s.stage.name == "res2a")
+    extra = check_stage(fused, "res2a with affine+relu+skip", res2a, relu_override=True)
+
+    h, w = plan.input_shape[:2]
+    xf = (torch.randn((h, w, 3), generator=gen, device=dev) * 2.0).to(bf16)
+    fin = check_finish("finish", xf, prologue_for(xf, 3, False, (h, w)))
 
     print("phase 2, dual: every stage with a CIN prologue, and the finish", flush=True)
     dual_rows = {}
     for i, step in enumerate(fused.steps):
         if step.src >= 0:
-            dual_rows[i] = check_stage(step.stage.name, step, dual=True)
+            dual_rows[i] = check_stage(fused, step.stage.name, step, dual=True)
             note(f"{step.stage.name}: dual {dual_rows[i]['ms']:.4f} ms vs single "
                  f"{rows[i]['ms']:.4f} ms")
-    dual_extra = check_stage("res2a with affine+relu+skip", res2a, relu_override=True,
+    dual_extra = check_stage(fused, "res2a with affine+relu+skip", res2a, relu_override=True,
                              dual=True)
-    fin_dual = check_finish("finish dual", prologue_for(xf, 3, False, (h, w), dual=True))
+    fin_dual = check_finish("finish dual", xf, prologue_for(xf, 3, False, (h, w), dual=True))
     note(f"finish: dual {fin_dual['ms']:.4f} ms vs single {fin['ms']:.4f} ms")
-    if failures:
-        print(f"FAILED phase 2: {failures}")
+    if failed("phase 2"):
         return 1
 
     print("phase 2, int8: every stage in int8 form (seeded scales), single and dual",
           flush=True)
     variables = to_flax(model.transfer.state_dict())
-    seeded_scales = (np.random.default_rng(SEED + 1).random((fused.n_conv_stages, 128))
-                     * 2.5 + 0.5).astype(np.float32)
-    fused_seeded = FusedTransfer(variables, plan, quant="int8", act_scales=seeded_scales)
+    fused_seeded = FusedTransfer(variables, plan, quant="int8", act_scales=seeded_scales(fused))
     int8_rows, int8_dual_rows = {}, {}
     for i, step in enumerate(fused_seeded.steps):
-        int8_rows[i] = check_stage(f"{step.stage.name} int8", step)
+        int8_rows[i] = check_stage(fused_seeded, f"{step.stage.name} int8", step)
         if step.src >= 0:
-            int8_dual_rows[i] = check_stage(f"{step.stage.name} int8", step, dual=True)
+            int8_dual_rows[i] = check_stage(fused_seeded, f"{step.stage.name} int8", step,
+                                            dual=True)
         note(f"{step.stage.name}: int8 {int8_rows[i]['ms']:.4f} ms vs bf16 {rows[i]['ms']:.4f} ms"
              + (f"; dual int8 {int8_dual_rows[i]['ms']:.4f} ms vs dual bf16 "
                 f"{dual_rows[i]['ms']:.4f} ms" if i in int8_dual_rows else ""))
-    if failures:
-        print(f"FAILED phase 2, int8: {failures}")
+    if failed("phase 2, int8"):
         return 1
 
     # ---- phase 3: the main path, single and dual style ------------------------
@@ -384,13 +443,14 @@ def main() -> int:
                      weights=None):
         """Each delivered frame against the eager f32 net and the plain
         bf16 stage composition."""
-        if sorted(results) != list(range(N_FRAMES)):
+        oh, ow, _ = engine.plan.output_shape
+        if sorted(results) != list(range(len(frames))):
             failures.append(f"{label} frames delivered")
         errs_f32, errs_plain = [], []
         with torch.no_grad():
             for i, frame in enumerate(frames):
                 got = torch.from_numpy(results[i]).to(dev)
-                if tuple(got.shape) != (h, w, 3) or not bool(torch.isfinite(got).all()):
+                if tuple(got.shape) != (oh, ow, 3) or not bool(torch.isfinite(got).all()):
                     failures.append(f"{label} frame {i} shape/finite")
                     continue
                 content = torch.from_numpy(frame)[None].to(dev)
@@ -425,8 +485,7 @@ def main() -> int:
     prepared = fused.prepare_style(style_params)
     errs_f32, errs_plain = check_frames("single", fused, model.transfer, results, frames,
                                         style_params, prepared)
-    if failures:
-        print(f"FAILED phase 3: {failures}")
+    if failed("phase 3"):
         return 1
 
     print(f"phase 3, dual: {N_FRAMES} frames, two styles, vertical ramp weight map",
@@ -461,20 +520,24 @@ def main() -> int:
     torch.cuda.synchronize()
     zero_err = close("dual, all-zero map vs single style 0 (kernels)", blend0, style0,
                      1.6e-2, 1e-2)
-    if failures:
-        print(f"FAILED phase 3, dual: {failures}")
+    if failed("phase 3, dual"):
         return 1
 
     # ---- phase 3, chunk: one CUDA graph replay for N frames -------------------
-    print(f"phase 3, chunk: chunks of {N_FRAMES} frame packs, single and dual", flush=True)
-    packs = torch.stack([fused.pack_frame_np(f[None]) for f in frames]).to(dev)
-    chunk = {}
-    for label, engine, prep in (("single", fused, prepared), ("dual", fused2, prepared2)):
+    def check_chunk(label, engine, packs, prep, compare=None):
+        """An N-frame chunk: the graph's recorded launches, one replay a
+        call, the frames against N single calls (within phase 2's
+        kernel-vs-plain limits unless ``compare`` is given); then timed."""
+        if compare is None:
+            def compare(name, got, ref):
+                return close(name, got, ref, 1.6e-2, 1e-2)
+        n = packs.shape[0]
+        n_st = len(engine.steps)
         kernels.reset_launch_counts()
         got = engine.stylize_prepacked_chunk(packs, prep)
         torch.cuda.synchronize()
-        graph = engine.chunk_graphs[N_FRAMES]
-        want_captured = {k: v * N_FRAMES for k, v in per_frame.items()}
+        graph = engine.chunk_graphs[n]
+        want_captured = {"conv_stage": n_st * n, "finish": n}
         replays = kernels.replay_graph.replays
         print(f"chunk {label}: graph holds {graph.captured} (expected {want_captured}), "
               f"replays {replays} (expected 1), launches on the way "
@@ -482,71 +545,76 @@ def main() -> int:
               f"(one warm-up frame + the recorded ones)")
         if graph.captured != want_captured or replays != 1:
             failures.append(f"chunk {label} graph")
-        singles = torch.cat([engine.stylize_prepacked(packs[i], prep)
-                             for i in range(N_FRAMES)])
-        if tuple(got.shape) != (N_FRAMES, h, w, 3):
+        singles = torch.cat([engine.stylize_prepacked(packs[i], prep) for i in range(n)])
+        oh, ow, _ = engine.plan.output_shape
+        if tuple(got.shape) != (n, oh, ow, 3):
             failures.append(f"chunk {label} shape {tuple(got.shape)}")
-        err = close(f"chunk {label} vs {N_FRAMES} single calls", got, singles, 1.6e-2, 1e-2)
+        err = compare(f"chunk {label} vs {n} single calls", got, singles)
         kernels.reset_launch_counts()
         again = engine.stylize_prepacked_chunk(packs, prep)
         torch.cuda.synchronize()
         if (kernels.replay_graph.replays, kernels.conv_stage.launches,
                 kernels.finish.launches) != (1, 0, 0):
             failures.append(f"chunk {label} second call")
-        close(f"chunk {label}, second call vs first", again, got, 1.6e-2, 1e-2)
+        compare(f"chunk {label}, second call vs first", again, got)
         with torch.no_grad():
             chunk_ms = cuda_ms(lambda: engine.stylize_prepacked_chunk(packs, prep), 10)
             singles_ms = cuda_ms(lambda: [engine.stylize_prepacked(packs[i], prep)
-                                          for i in range(N_FRAMES)], 10)
+                                          for i in range(n)], 10)
             replay_ms = cuda_ms(lambda: kernels.replay_graph(graph.graph), 10)
             raw_ms = cuda_ms(lambda: [engine.stylize_prepacked_raw(packs[i], prep)
-                                      for i in range(N_FRAMES)], 10)
-        chunk[label] = dict(err=err, ms=chunk_ms / N_FRAMES, singles_ms=singles_ms / N_FRAMES,
-                            replay_ms=replay_ms / N_FRAMES, raw_ms=raw_ms / N_FRAMES)
-        note(f"chunk {label}, per frame: stylize_prepacked_chunk({N_FRAMES}) "
-             f"{chunk[label]['ms']:.4f} ms vs {N_FRAMES} stylize_prepacked calls "
-             f"{chunk[label]['singles_ms']:.4f} ms; graph replay alone "
-             f"{chunk[label]['replay_ms']:.4f} ms vs {N_FRAMES} stylize_prepacked_raw calls "
-             f"{chunk[label]['raw_ms']:.4f} ms")
-    if failures:
-        print(f"FAILED phase 3, chunk: {failures}")
+                                      for i in range(n)], 10)
+        res = dict(err=err, ms=chunk_ms / n, singles_ms=singles_ms / n, replay_ms=replay_ms / n,
+                   raw_ms=raw_ms / n, captured=graph.captured)
+        note(f"chunk {label}, per frame: stylize_prepacked_chunk({n}) {res['ms']:.4f} ms vs "
+             f"{n} stylize_prepacked calls {res['singles_ms']:.4f} ms; graph replay alone "
+             f"{res['replay_ms']:.4f} ms vs {n} stylize_prepacked_raw calls "
+             f"{res['raw_ms']:.4f} ms")
+        return res
+
+    print(f"phase 3, chunk: chunks of {N_FRAMES} frame packs, single and dual", flush=True)
+    packs = torch.stack([fused.pack_frame_np(f[None]) for f in frames]).to(dev)
+    chunk = {"single": check_chunk("single", fused, packs, prepared),
+             "dual": check_chunk("dual", fused2, packs, prepared2)}
+    if failed("phase 3, chunk"):
         return 1
 
     # ---- phase 3, int8: calibrate, stream, check, chunk ---------------------------
-    n_cal = 4
-    n_st = fused.n_conv_stages
-    print(f"phase 3, int8: calibrate on {n_cal} frames, {N_FRAMES} frames through "
-          "stylize_video(quant='int8'), single and dual", flush=True)
-    packs = packs.to(dev)
-    kernels.reset_launch_counts()
-    cal_kernel = fused.calibrate_act_scales(list(packs[:n_cal]), prepared)
-    torch.cuda.synchronize()
-    check_launches("calibrate", {"conv_stage": n_st, "act_stats": n_st}, n_cal,
-                   {"finish": 0})
-    cal_plain = fused.calibrate_act_scales(list(packs[:n_cal]), prepared, plain=True)
-    # each side takes its maxima over its own stage chain, and the two chains'
-    # activations differ as their frames do (moment atomics and conv summation
-    # order flip bf16 roundings, which compound stage by stage): the port's
-    # kernel-vs-plain frame limit, rtol 0.05 + atol 0.02
-    cal_err = np.abs(cal_kernel - cal_plain)
-    cal_ok = bool((cal_err <= 0.02 + 0.05 * np.abs(cal_plain)).all())
-    rel = cal_err / np.maximum(np.abs(cal_plain), 1e-6)
-    print(f"calibrated scales, kernels vs plain: max_abs_err {cal_err.max():.3e}, max rel "
-          f"{rel.max():.3e} (limit rtol 0.05 + atol 0.02) {'ok' if cal_ok else 'FAIL'}; max "
-          "rel by stage: " + ", ".join(f"{s.stage.name} {rel[i].max():.1e}"
-                                       for i, s in enumerate(fused.steps)))
-    if not cal_ok:
-        failures.append("calibration kernels vs plain")
+    def check_calibration(label, engine, cal_packs, prep):
+        """Kernel calibration (launch counts) against plain calibration."""
+        n_st = engine.n_conv_stages
+        kernels.reset_launch_counts()
+        cal_kernel = engine.calibrate_act_scales(cal_packs, prep)
+        torch.cuda.synchronize()
+        check_launches(f"{label} calibrate", {"conv_stage": n_st, "act_stats": n_st},
+                       len(cal_packs), {"finish": 0})
+        cal_plain = engine.calibrate_act_scales(cal_packs, prep, plain=True)
+        # each side takes its maxima over its own stage chain, and the two chains'
+        # activations differ as their frames do (moment atomics and conv summation
+        # order flip bf16 roundings, which compound stage by stage): the port's
+        # kernel-vs-plain frame limit, rtol 0.05 + atol 0.02
+        cal_err = np.abs(cal_kernel - cal_plain)
+        cal_ok = bool((cal_err <= 0.02 + 0.05 * np.abs(cal_plain)).all())
+        rel = cal_err / np.maximum(np.abs(cal_plain), 1e-6)
+        print(f"{label} calibrated scales, kernels vs plain: max_abs_err {cal_err.max():.3e}, "
+              f"max rel {rel.max():.3e} (limit rtol 0.05 + atol 0.02) "
+              f"{'ok' if cal_ok else 'FAIL'}; max rel by stage: "
+              + ", ".join(f"{s.stage.name} {rel[i].max():.1e}"
+                          for i, s in enumerate(engine.steps)))
+        if not cal_ok:
+            failures.append(f"{label} calibration kernels vs plain")
+        return cal_kernel
 
     def check_int8_frames(label, bf16_engine, engine, results, frames, prep_bf16, prep_q):
         """Each int8 frame against the bf16 kernel path (the JAX package's
         int8 bar) and the plain int8 stage composition."""
-        if sorted(results) != list(range(N_FRAMES)):
+        oh, ow, _ = engine.plan.output_shape
+        if sorted(results) != list(range(len(frames))):
             failures.append(f"{label} frames delivered")
         errs_bf16, errs_plain, psnrs = [], [], []
         for i, frame in enumerate(frames):
             got = torch.from_numpy(results[i]).to(dev)
-            if tuple(got.shape) != (h, w, 3) or not bool(torch.isfinite(got).all()):
+            if tuple(got.shape) != (oh, ow, 3) or not bool(torch.isfinite(got).all()):
                 failures.append(f"{label} frame {i} shape/finite")
                 continue
             pk = bf16_engine.pack_frame_np(frame[None])
@@ -567,71 +635,76 @@ def main() -> int:
                 failures.append(f"{label} frame {i}")
         return errs_bf16, errs_plain, psnrs
 
-    int8_runs = {}
-    for label, bf16_engine, mdl, styles_in, frs, weights_map, sp, prep in (
-            ("int8", fused, model, style_image, frames, None, style_params, prepared),
-            ("dual int8", fused2, model2, style_images, frames2, ramp, style_params2,
-             prepared2)):
+    def run_int8_video(label, bf16_engine, mdl, styles_in, frs, weights_map, sp, prep,
+                       weights_t=None):
+        """``stylize_video(quant='int8')``: calibration on the first frames,
+        then every frame through the int8 engine; launch counts and frames
+        checked."""
         res = {}
+        n_st = bf16_engine.n_conv_stages
         kernels.reset_launch_counts()
         run_q = stylize_video(mdl, bf16_engine, styles_in, frs,
-                              lambda i, frame, res=res: res.__setitem__(i, frame),
+                              lambda i, frame: res.__setitem__(i, frame),
                               style_weights=weights_map, quant="int8",
                               variables=to_flax(mdl.transfer.state_dict()),
-                              calibration_frames=n_cal)
+                              calibration_frames=N_CAL)
         torch.cuda.synchronize()
-        counts = check_launches(label, per_frame, N_FRAMES + 1,
-                                {"conv_stage": n_st * (N_FRAMES + 1 + n_cal),
-                                 "act_stats": n_st * n_cal})
+        counts = check_launches(label, {"conv_stage": n_st, "finish": 1}, len(frs) + 1,
+                                {"conv_stage": n_st * (len(frs) + 1 + N_CAL),
+                                 "act_stats": n_st * N_CAL})
         engine = run_q["engine"]
-        prep_q = engine.prepare_style(sp, None if weights_map is None else ramp_t)
+        prep_q = engine.prepare_style(sp, weights_t)
         errs = check_int8_frames(label, bf16_engine, engine, res, frs, prep, prep_q)
-        int8_runs[label] = dict(run=run_q, engine=engine, prep=prep_q, launches=counts,
-                                errs=errs)
+        return dict(run=run_q, engine=engine, prep=prep_q, launches=counts, errs=errs)
 
+    def check_saturation(label, engine, cal_packs, prep, sp, scales_q, cal_kernel):
+        """The saturation check on the deployed scales: the matching style
+        passes, a stronger one is flagged; the check's launch counts."""
+        n_st = engine.n_conv_stages
+        kernels.reset_launch_counts()
+        match = engine.check_act_saturation(cal_packs, prep, scales_q)
+        torch.cuda.synchronize()
+        check_launches(f"{label} check", {"conv_stage": n_st, "act_stats": n_st},
+                       len(cal_packs), {"finish": 0})
+        strong = engine.check_act_saturation(cal_packs, engine.prepare_style(sp * 3), scales_q)
+        sat = {}
+        for name, report in (("matching style", match), ("style params x 3", strong)):
+            ratio = max(r["max_ratio"] for r in report)
+            clips = sum(r["clip_events"] for r in report)
+            frac = clips / sum(r["n_quantized"] for r in report)
+            sat[name] = (ratio, clips, frac)
+            print(f"{label} saturation check, {name}: max_ratio {ratio:.4f} (stage "
+                  f"{max(report, key=lambda r: r['max_ratio'])['stage']}), clip events "
+                  f"{clips}, clip fraction {frac:.3e}")
+        # the check's stage chain is a new run of the calibration's: the CIN
+        # moments are float atomics, so bf16 roundings of x' flip and the maxima
+        # move between two runs on the same frames (two kernel calibrations of
+        # this run are compared below); hence the chain's rtol 0.05, far below
+        # the CLI guard's 1.25
+        drift = float(np.max(np.maximum(cal_kernel, scales_q)
+                             / np.maximum(np.minimum(cal_kernel, scales_q), 1e-6)))
+        print(f"{label} kernel calibrations run to run (calibrate_act_scales vs "
+              f"stylize_video): max ratio {drift:.4f}; matching-style limit max_ratio <= 1.05")
+        if not (sat["matching style"][0] <= 1.05 and sat["matching style"][2] <= 1e-6):
+            failures.append(f"{label} saturation check, matching style")
+        if not (sat["style params x 3"][0] > 1.25 and sat["style params x 3"][1] > 0):
+            failures.append(f"{label} saturation check, stronger style")
+        return sat
+
+    print(f"phase 3, int8: calibrate on {N_CAL} frames, {N_FRAMES} frames through "
+          "stylize_video(quant='int8'), single and dual", flush=True)
+    cal_packs = list(packs[:N_CAL])
+    cal_kernel = check_calibration("flagship", fused, cal_packs, prepared)
+    int8_runs = {
+        "int8": run_int8_video("int8", fused, model, style_image, frames, None, style_params,
+                               prepared),
+        "dual int8": run_int8_video("dual int8", fused2, model2, style_images, frames2, ramp,
+                                    style_params2, prepared2, ramp_t)}
     eng_q, prep_q = int8_runs["int8"]["engine"], int8_runs["int8"]["prep"]
-    scales_q = int8_runs["int8"]["run"]["act_scales"]
-    cal_packs = list(packs[:n_cal])
-    match = fused.check_act_saturation(cal_packs, prepared, scales_q)
-    strong = fused.check_act_saturation(cal_packs, fused.prepare_style(style_params * 3),
-                                        scales_q)
-    sat = {}
-    for name, report in (("matching style", match), ("style params x 3", strong)):
-        ratio = max(r["max_ratio"] for r in report)
-        clips = sum(r["clip_events"] for r in report)
-        frac = clips / sum(r["n_quantized"] for r in report)
-        sat[name] = (ratio, clips, frac)
-        print(f"saturation check, {name}: max_ratio {ratio:.4f} (stage "
-              f"{max(report, key=lambda r: r['max_ratio'])['stage']}), clip events {clips}, "
-              f"clip fraction {frac:.3e}")
-    # the check's stage chain is a new run of the calibration's: the CIN
-    # moments are float atomics, so bf16 roundings of x' flip and the maxima
-    # move between two runs on the same frames (two kernel calibrations of
-    # this run are compared below); hence the chain's rtol 0.05, far below
-    # the CLI guard's 1.25
-    drift = float(np.max(np.maximum(cal_kernel, scales_q)
-                         / np.maximum(np.minimum(cal_kernel, scales_q), 1e-6)))
-    print(f"kernel calibrations run to run (calibrate_act_scales vs stylize_video): "
-          f"max ratio {drift:.4f}; matching-style limit max_ratio <= 1.05")
-    if not (sat["matching style"][0] <= 1.05 and sat["matching style"][2] <= 1e-6):
-        failures.append("saturation check, matching style")
-    if not (sat["style params x 3"][0] > 1.25 and sat["style params x 3"][1] > 0):
-        failures.append("saturation check, stronger style")
-
-    kernels.reset_launch_counts()
-    chunk_q = eng_q.stylize_prepacked_chunk(packs, prep_q)
-    torch.cuda.synchronize()
-    graph_q = eng_q.chunk_graphs[N_FRAMES]
-    want_captured = {k: v * N_FRAMES for k, v in per_frame.items()}
-    print(f"chunk int8: graph holds {graph_q.captured} (expected {want_captured}), replays "
-          f"{kernels.replay_graph.replays} (expected 1)")
-    if graph_q.captured != want_captured or kernels.replay_graph.replays != 1:
-        failures.append("chunk int8 graph")
-    singles_q = torch.cat([eng_q.stylize_prepacked(packs[i], prep_q) for i in range(N_FRAMES)])
-    chunk_q_err = close(f"chunk int8 vs {N_FRAMES} single calls", chunk_q, singles_q,
-                        1.6e-2, 1e-2)
-    if failures:
-        print(f"FAILED phase 3, int8: {failures}")
+    check_saturation("flagship", fused, cal_packs, prepared, style_params,
+                     int8_runs["int8"]["run"]["act_scales"], cal_kernel)
+    chunk["int8"] = check_chunk("int8", eng_q, packs, prep_q)
+    if failed("phase 3, int8"):
         return 1
 
     # ---- probe: int8 against bf16 mma.sync at the residual conv's shapes -------------
@@ -666,18 +739,21 @@ def main() -> int:
         ratio = probe[(arm, "int8")]["ms"] / probe[(arm, "bf16")]["ms"]
         probe[(arm, "ratio")] = ratio
         note(f"probe {arm}: int8/bf16 time ratio {ratio:.3f}")
-    if failures:
-        print(f"FAILED probe: {failures}")
+    if failed("probe"):
         return 1
+
+    def yardstick(label, fn):
+        """A library call's time, or why this build refused it."""
+        try:
+            return cuda_ms(fn, 20)
+        except RuntimeError as exc:  # a yardstick, not a check: report what refused
+            return f"{label} refused: {str(exc)[:160]}"
 
     def int_mm_ms(m, k, n):
         """torch._int_mm on an (m, k) x (k, n) int8 product, or its error."""
-        try:
-            a = torch.randint(-127, 127, (m, k), dtype=torch.int8, device=dev)
-            b = torch.randint(-127, 127, (n, k), dtype=torch.int8, device=dev).t()
-            return cuda_ms(lambda: torch._int_mm(a, b), 20)
-        except RuntimeError as exc:  # a yardstick, not a check: report what refused
-            return f"torch._int_mm refused ({m}, {k}) x ({k}, {n}): {str(exc)[:160]}"
+        a = torch.randint(-127, 127, (m, k), dtype=torch.int8, device=dev)
+        b = torch.randint(-127, 127, (n, k), dtype=torch.int8, device=dev).t()
+        return yardstick(f"torch._int_mm ({m}, {k}) x ({k}, {n})", lambda: torch._int_mm(a, b))
 
     res_hw = fused.steps[4].stage.in_hw
     lib_res = int_mm_ms(res_hw[0] * res_hw[1], 9 * 128, 128)
@@ -709,9 +785,8 @@ def main() -> int:
         eng_q2, prep_q2 = int8_runs["dual int8"]["engine"], int8_runs["dual int8"]["prep"]
         int8_frame_ms = cuda_ms(lambda: eng_q.stylize_prepacked_raw(packed, prep_q), 20)
         dual_int8_frame_ms = cuda_ms(lambda: eng_q2.stylize_prepacked_raw(packed, prep_q2), 20)
-        int8_chunk_ms = cuda_ms(lambda: eng_q.stylize_prepacked_chunk(packs, prep_q),
-                                10) / N_FRAMES
         calibrate_ms = cuda_ms(lambda: fused.calibrate_act_scales([packed], prepared), 5)
+    int8_chunk_ms = chunk["int8"]["ms"]
     lat = sorted(run["latency_s"])
     lat2 = sorted(run2["latency_s"])
     note(f"frame, kernel path (stylize_prepacked_raw): {frame_ms:.4f} ms")
@@ -749,19 +824,217 @@ def main() -> int:
     note(f"stage kernels summed, int8: {sum(r['ms'] for r in int8_rows.values()):.4f} ms "
          f"vs bf16 {sum(r['ms'] for r in rows):.4f} ms")
 
+    # ---- phase 5: the divider-1 plan at full width -------------------------------
+    print(f"phase 5: {SPEC_1920}, the divider-1 (three_seg) plan", flush=True)
+    t0 = time.perf_counter()
+    model1 = make_inference_model(ShapeConfig.from_spec(SPEC_1920), seed=SEED)
+    plan1 = model1.plan
+    variables1 = to_flax(model1.transfer.state_dict())
+    fused1 = FusedTransfer(variables1, plan1)
+    names1 = [s.stage.name for s in fused1.steps]
+    print(f"engine {SPEC_1920}: three_seg {fused1.three_seg}, {len(fused1.steps)} conv "
+          f"stages + finish ({', '.join(names1)}), {plan1.num_style_parameters} style "
+          f"params, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    if plan1.num_style_parameters != 2678 or not fused1.three_seg or len(fused1.steps) != 18:
+        print(f"FAILED: {SPEC_1920} engine: style vector ABI {plan1.num_style_parameters} "
+              f"(want 2678), three_seg {fused1.three_seg}, {len(fused1.steps)} stages (want 18)")
+        return 1
+    try:
+        FusedTransfer(variables1, plan1, num_styles=2)
+        failures.append(f"{SPEC_1920}: two styles accepted")
+    except ValueError as exc:
+        print(f"{SPEC_1920}, num_styles=2 refused: {exc}")
+        if DUAL_REFUSAL not in str(exc):
+            failures.append(f"{SPEC_1920}: two styles refused with another message")
+
+    print(f"phase 5, stages: every {SPEC_1920} stage kernel vs its plain version, bf16",
+          flush=True)
+    rows1 = [check_stage(fused1, f"rst1920 {s.stage.name}", s) for s in fused1.steps]
+    h1, w1 = plan1.input_shape[:2]
+    xf1 = (torch.randn((h1, w1, 3), generator=gen, device=dev) * 2.0).to(bf16)
+    fin1 = check_finish("rst1920 finish", xf1, prologue_for(xf1, 3, False, (h1, w1)))
+    print(f"phase 5, stages: every {SPEC_1920} stage in int8 form (seeded scales)", flush=True)
+    fused1_seeded = FusedTransfer(variables1, plan1, quant="int8",
+                                  act_scales=seeded_scales(fused1))
+    int8_rows1 = [check_stage(fused1_seeded, f"rst1920 {s.stage.name} int8", s)
+                  for s in fused1_seeded.steps]
+    for name, r, q in zip(names1, rows1, int8_rows1):
+        note(f"rst1920 {name}: bf16 {r['ms']:.4f} ms, int8 {q['ms']:.4f} ms "
+             f"({q['ms'] / r['ms']:.3f}), bound {max(r['ops_ms'], r['bytes_ms']):.4f} / "
+             f"{max(q['ops_ms'], q['bytes_ms']):.4f} ms, F.conv2d bf16 {r['library_ms']:.4f} ms")
+    if failed("phase 5, stages"):
+        return 1
+
+    print(f"phase 5, frames: {N_FRAMES} frames of {SPEC_1920} through video.stylize_video",
+          flush=True)
+    rng1 = np.random.default_rng(SEED + 2)
+    style_image1 = rng1.random((h1, w1, 3), dtype=np.float32)
+    frames1 = [rng1.random(plan1.input_shape, dtype=np.float32) for _ in range(N_FRAMES)]
+    per_frame1 = {"conv_stage": len(fused1.steps), "finish": 1}
+    results1 = {}
+    kernels.reset_launch_counts()
+    run1 = stylize_video(model1, fused1, style_image1, frames1,
+                         lambda i, frame: results1.__setitem__(i, frame))
+    torch.cuda.synchronize()
+    launches1 = check_launches("rst1920", per_frame1, N_FRAMES + 1)  # + warm-up
+    style_params1 = run1["style_params"]
+    if tuple(style_params1.shape) != (1, 1, 2678) or not torch.isfinite(style_params1).all():
+        failures.append("rst1920 style params")
+    prepared1 = fused1.prepare_style(style_params1)
+    errs1_f32, errs1_plain = check_frames("rst1920", fused1, model1.transfer, results1,
+                                          frames1, style_params1, prepared1)
+    if failed("phase 5, frames"):
+        return 1
+
+    print(f"phase 5, int8: calibrate on {N_CAL} frames, {N_FRAMES} frames through "
+          "stylize_video(quant='int8')", flush=True)
+    packs1 = torch.stack([fused1.pack_frame_np(f[None]) for f in frames1]).to(dev)
+    cal_packs1 = list(packs1[:N_CAL])
+    cal_kernel1 = check_calibration("rst1920", fused1, cal_packs1, prepared1)
+    int8_run1 = run_int8_video("rst1920 int8", fused1, model1, style_image1, frames1, None,
+                               style_params1, prepared1)
+    eng_q1, prep_q1 = int8_run1["engine"], int8_run1["prep"]
+    check_saturation("rst1920", fused1, cal_packs1, prepared1, style_params1,
+                     int8_run1["run"]["act_scales"], cal_kernel1)
+    if failed("phase 5, int8"):
+        return 1
+
+    print(f"phase 5, chunk: chunks of {N_FRAMES} {SPEC_1920} frame packs, bf16 and int8",
+          flush=True)
+    # two runs of the int8 chain differ where a float-atomic moment flips a
+    # rounding that moves a quantized input by one int8 step: at 960x1920 two
+    # replays of one graph differ by up to 10 bf16 ulps (PERF.md), so the
+    # int8 chunk is held to the frame limit that holds its frames to the plain
+    # int8 composition
+    chunk1 = {"bf16": check_chunk("rst1920", fused1, packs1, prepared1),
+              "int8": check_chunk("rst1920 int8", eng_q1, packs1, prep_q1, close_frame)}
+    if failed("phase 5, chunk"):
+        return 1
+
+    packed1 = packs1[0]
+    content1 = torch.from_numpy(frames1[0])[None].to(dev)
+    style1 = torch.from_numpy(style_image1)[None, None].to(dev)
+    with torch.no_grad():
+        frame1_ms = cuda_ms(lambda: fused1.stylize_prepacked_raw(packed1, prepared1), 20)
+        int8_frame1_ms = cuda_ms(lambda: eng_q1.stylize_prepacked_raw(packed1, prep_q1), 20)
+        plain_frame1_ms = cuda_ms(
+            lambda: fused1.stylize_prepacked_raw(packed1, prepared1, plain=True), 3)
+        int8_plain_frame1_ms = cuda_ms(
+            lambda: eng_q1.stylize_prepacked_raw(packed1, prep_q1, plain=True), 3)
+        eager1_ms = cuda_ms(lambda: model1.transfer(content1, style_params1), 3)
+        predictor1_ms = cuda_ms(lambda: model1.predict_style_params(style1), 10)
+        calibrate1_ms = cuda_ms(lambda: fused1.calibrate_act_scales([packed1], prepared1), 5)
+    lat1 = sorted(run1["latency_s"])
+    lat1_q = sorted(int8_run1["run"]["latency_s"])
+    stage1_ms = sum(r["ms"] for r in rows1)
+    note(f"rst1920 frame, kernel path (stylize_prepacked_raw): bf16 {frame1_ms:.4f} ms, "
+         f"int8 {int8_frame1_ms:.4f} ms ({int8_frame1_ms / frame1_ms:.3f} of bf16)")
+    note(f"rst1920 stage kernels summed: bf16 {stage1_ms:.4f} ms (stem "
+         f"{rows1[0]['ms'] / stage1_ms:.1%}) + finish {fin1['ms']:.4f} ms; int8 "
+         f"{sum(r['ms'] for r in int8_rows1):.4f} ms (stem "
+         f"{int8_rows1[0]['ms'] / sum(r['ms'] for r in int8_rows1):.1%}); 18 x F.conv2d bf16 "
+         f"{sum(r['library_ms'] for r in rows1):.4f} ms")
+    note(f"rst1920 frame, plain stage composition: bf16 {plain_frame1_ms:.4f} ms, int8 "
+         f"{int8_plain_frame1_ms:.4f} ms; eager f32 StyleTransferNet {eager1_ms:.4f} ms")
+    for label, c in chunk1.items():
+        note(f"rst1920 chunk {label}: {c['ms']:.4f} ms a frame (graph replay "
+             f"{c['replay_ms']:.4f} ms), single calls {c['singles_ms']:.4f} ms (stage loop "
+             f"{c['raw_ms']:.4f} ms)")
+    note(f"rst1920 calibration (calibrate_act_scales, one frame): {calibrate1_ms:.4f} ms")
+    note(f"style predictor (MobileNetV3-Small, 960x1920): {predictor1_ms:.4f} ms")
+    eb1, eq1, ps1 = int8_run1["errs"]
+    note(f"rst1920 video loop host latency per frame (stylize + D2H): bf16 median "
+         f"{lat1[len(lat1) // 2] * 1e3:.4f} ms, max {lat1[-1] * 1e3:.4f} ms; int8 median "
+         f"{lat1_q[len(lat1_q) // 2] * 1e3:.4f} ms, max {lat1_q[-1] * 1e3:.4f} ms")
+    note(f"rst1920: max err vs eager f32 {max(errs1_f32):.3e}, vs plain bf16 "
+         f"{max(errs1_plain):.3e}; int8 vs bf16 kernels max {max(eb1):.3e}, min PSNR "
+         f"{min(ps1):.2f} dB, vs plain int8 max {max(eq1):.3e}")
+    moments1 = {r_name: r["moments_rel"] for r_name, r in zip(names1, rows1)
+                if r["moments_rel"] is not None}
+    note("rst1920 CIN moments, kernel vs plain, max relative difference of the sums of "
+         "squares (of the sums, to the largest): "
+         + ", ".join(f"{k} {v[0]:.2e} ({v[1]:.2e})" for k, v in moments1.items()))
+
+    # ---- phase 6: the repack probe and the library yardsticks of rows 2, 3 -----
+    print(f"phase 6: {REPACK_PROBE} on Hopper", flush=True)
+    repack = {}
+    for name, case in probe_repack.CASES.items():
+        a, b = probe_repack.make_inputs(case, dev, SEED)
+        fn = probe_repack.KERNELS[case.op]
+        fn.launches = 0
+        got = probe_repack.run(case, a, b)
+        launches_r = fn.launches
+        want = probe_repack.run(case, a, b, plain=True)
+        lib = probe_repack.run(case, a, b, lib=True)
+        torch.cuda.synchronize()
+        same = got.shape == want.shape and torch.equal(got.view(torch.int16),
+                                                       want.view(torch.int16))
+        lib_same = torch.equal(lib.view(torch.int16), want.view(torch.int16))
+        ms = cuda_ms(lambda: probe_repack.run(case, a, b), 20)
+        plain_ms = cuda_ms(lambda: probe_repack.run(case, a, b, plain=True), 5)
+        lib_ms = cuda_ms(lambda: probe_repack.run(case, a, b, lib=True), 20)
+        n_bytes = repack_work(case)
+        bound, _ = bound_ms(0.0, n_bytes)
+        repack[name] = dict(launches=launches_r, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound=bound, gbs=n_bytes / ms / 1e6)
+        note(f"repack {name}: {case.n} x {case.in_shape} -> "
+             f"{tuple(got.shape[1:])}, bit-equal to plain {'ok' if same else 'FAIL'} "
+             f"(library copy {'equal' if lib_same else 'DIFFERS'}); kernel {ms:.4f} ms "
+             f"({repack[name]['gbs']:.0f} GB/s, {bound / ms:.1%} of the HBM rate), plain "
+             f"{plain_ms:.4f} ms, permute().contiguous() copy {lib_ms:.4f} ms, bound "
+             f"{bound:.4f} ms (bytes, {n_bytes / 1e6:.1f} MB)")
+        if not (same and lib_same and launches_r == 1):
+            failures.append(f"repack {name}")
+    frame_case = probe_repack.CASES["fold2_rst1920_c2"]
+    a, _ = probe_repack.make_inputs(frame_case, dev, SEED)
+    back = probe_repack.unfold2(probe_repack.fold2(a), frame_case.in_shape[2])
+    torch.cuda.synchronize()
+    round_trip = torch.equal(back.view(torch.int16), a.view(torch.int16))
+    print(f"repack: unfold2(fold2(x)) == x on the rst1920 c2 output "
+          f"{'ok' if round_trip else 'FAIL'}")
+    if not round_trip:
+        failures.append("repack round trip")
+    if failed("phase 6, repack"):
+        return 1
+
+    hb, wb_, fb = plan.bottleneck_res_y, 2 * plan.bottleneck_res_y, plan.bottleneck_num_filters
+    x_cin = torch.randn((1, fb, hb, wb_), generator=gen, device=dev).to(bf16)
+    g_cin = torch.rand(fb, generator=gen, device=dev) * 0.4 + 0.8
+    b_cin = torch.rand(fb, generator=gen, device=dev) * 0.4 - 0.2
+    lib_cin = yardstick("F.instance_norm", lambda: F.instance_norm(x_cin, weight=g_cin,
+                                                                   bias=b_cin, eps=eps))
+    x_conv = torch.randn((1, fb, hb + 2, wb_ + 2), generator=gen, device=dev).to(bf16) \
+        .contiguous(memory_format=torch.channels_last)
+    w_conv = (torch.randn((fb, fb, 3, 3), generator=gen, device=dev) * 0.05).to(bf16) \
+        .contiguous(memory_format=torch.channels_last)
+    lib_conv = yardstick("F.conv2d", lambda: F.conv2d(x_conv, w_conv))
+    note(f"library yardstick, row 2: F.instance_norm bf16 (1, {fb}, {hb}, {wb_}) with a "
+         f"per-channel affine: {lib_cin if isinstance(lib_cin, str) else f'{lib_cin:.4f} ms'}")
+    note(f"library yardstick, row 3: F.conv2d bf16 VALID 3x3 {fb}->{fb} on "
+         f"(1, {fb}, {hb + 2}, {wb_ + 2}): "
+         f"{lib_conv if isinstance(lib_conv, str) else f'{lib_conv:.4f} ms'}")
+
+    # ---- the kernel table -------------------------------------------------------
     def dual_sum(key):
         """A frame's conv_stage total in dual form: the prologue stages' dual
         figures, the others' single-style ones (they take no prologue)."""
         return sum(dual_rows.get(i, r)[key] for i, r in enumerate(rows))
 
-    ops_sum = sum(r["ops_ms"] for r in rows)
-    bytes_sum = sum(r["bytes_ms"] for r in rows)
-    stats_rows = [r["stats"] for r in int8_rows.values()]
-    a_ops = sum(r["ops_ms"] for r in stats_rows)
-    a_bytes = sum(r["bytes_ms"] for r in stats_rows)
-
     def bound_sum(rs):
         return sum(max(r["ops_ms"], r["bytes_ms"]) for r in rs)
+
+    def bound_by(rs):
+        ops = sum(r["ops_ms"] for r in rs)
+        return "operations" if ops >= sum(r["bytes_ms"] for r in rs) else "bytes"
+
+    def rst1920(rs, prefix="rst1920_"):
+        return {f"{prefix}max_abs_err": max(r["err"] for r in rs),
+                f"{prefix}ms": sum(r["ms"] for r in rs),
+                f"{prefix}plain_ms": sum(r["plain_ms"] for r in rs),
+                f"{prefix}bound_ms": bound_sum(rs), f"{prefix}bound_by": bound_by(rs)}
+
+    stats_rows = [r["stats"] for r in int8_rows.values()]
+    stats_rows1 = [r["stats"] for r in int8_rows1]
 
     def probe_entry(arm, line):
         q, b = probe[(arm, "int8")], probe[(arm, "bf16")]
@@ -777,34 +1050,42 @@ def main() -> int:
                 "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_bound_ms": b["bound"],
                 "bf16_tops": b["tops"], "int8_bf16_ratio": probe[(arm, "ratio")]}
     table = {"kernels": [
-        {"name": "conv_stage", "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
-         "replaces": f"{TPU_KERNEL}:936", "launches": launches["conv_stage"],
-         "max_abs_err": max([r["err"] for r in rows] + [extra["err"]]),
-         "ms": sum(r["ms"] for r in rows),
-         "plain_ms": sum(r["plain_ms"] for r in rows),
-         "bound_ms": sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows),
-         "bound_by": "operations" if ops_sum >= bytes_sum else "bytes",
-         "library_ms": sum(r["library_ms"] for r in rows),
-         "dual_launches": launches2["conv_stage"],
-         "dual_max_abs_err": max([r["err"] for r in dual_rows.values()] + [dual_extra["err"]]),
-         "dual_ms": dual_sum("ms"), "dual_plain_ms": dual_sum("plain_ms"),
-         "dual_bound_ms": sum(max(r["ops_ms"], r["bytes_ms"])
-                              for r in (dual_rows.get(i, r) for i, r in enumerate(rows))),
-         "chunk_captured": fused.chunk_graphs[N_FRAMES].captured["conv_stage"],
-         "int8_launches": int8_runs["int8"]["launches"]["conv_stage"],
-         "int8_max_abs_err": max(r["err"] for r in int8_rows.values()),
-         "int8_ms": sum(r["ms"] for r in int8_rows.values()),
-         "int8_plain_ms": sum(r["plain_ms"] for r in int8_rows.values()),
-         "int8_bound_ms": bound_sum(int8_rows.values()),
-         "int8_library_ms": lib_res if isinstance(lib_res, float) else None,
-         "int8_library_note": ("torch._int_mm on one residual conv's im2col GEMM "
-                               "(28800 x 1152 x 128), im2col left out"
-                               if isinstance(lib_res, float) else lib_res),
-         "int8_res_ms": int8_rows[4]["ms"],
-         "dual_int8_launches": int8_runs["dual int8"]["launches"]["conv_stage"],
-         "dual_int8_max_abs_err": max(r["err"] for r in int8_dual_rows.values()),
-         "dual_int8_ms": sum(int8_dual_rows.get(i, r)["ms"] for i, r in int8_rows.items()),
-         "int8_chunk_captured": graph_q.captured["conv_stage"]},
+        dict({"name": "conv_stage", "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
+              "replaces": f"{TPU_KERNEL}:936", "launches": launches["conv_stage"],
+              "max_abs_err": max([r["err"] for r in rows] + [extra["err"]]),
+              "ms": sum(r["ms"] for r in rows),
+              "plain_ms": sum(r["plain_ms"] for r in rows),
+              "bound_ms": bound_sum(rows), "bound_by": bound_by(rows),
+              "library_ms": sum(r["library_ms"] for r in rows),
+              "dual_launches": launches2["conv_stage"],
+              "dual_max_abs_err": max([r["err"] for r in dual_rows.values()]
+                                      + [dual_extra["err"]]),
+              "dual_ms": dual_sum("ms"), "dual_plain_ms": dual_sum("plain_ms"),
+              "dual_bound_ms": bound_sum(dual_rows.get(i, r) for i, r in enumerate(rows)),
+              "chunk_captured": chunk["single"]["captured"]["conv_stage"],
+              "int8_launches": int8_runs["int8"]["launches"]["conv_stage"],
+              "int8_max_abs_err": max(r["err"] for r in int8_rows.values()),
+              "int8_ms": sum(r["ms"] for r in int8_rows.values()),
+              "int8_plain_ms": sum(r["plain_ms"] for r in int8_rows.values()),
+              "int8_bound_ms": bound_sum(int8_rows.values()),
+              "int8_library_ms": lib_res if isinstance(lib_res, float) else None,
+              "int8_library_note": ("torch._int_mm on one residual conv's im2col GEMM "
+                                    "(28800 x 1152 x 128), im2col left out"
+                                    if isinstance(lib_res, float) else lib_res),
+              "int8_res_ms": int8_rows[4]["ms"],
+              "dual_int8_launches": int8_runs["dual int8"]["launches"]["conv_stage"],
+              "dual_int8_max_abs_err": max(r["err"] for r in int8_dual_rows.values()),
+              "dual_int8_ms": sum(int8_dual_rows.get(i, r)["ms"] for i, r in int8_rows.items()),
+              "int8_chunk_captured": chunk["int8"]["captured"]["conv_stage"],
+              "rst1920_launches": launches1["conv_stage"],
+              "rst1920_library_ms": sum(r["library_ms"] for r in rows1),
+              "rst1920_frame_ms": frame1_ms,
+              "rst1920_chunk_captured": chunk1["bf16"]["captured"]["conv_stage"],
+              "rst1920_int8_launches": int8_run1["launches"]["conv_stage"],
+              "rst1920_int8_library_ms": lib_res if isinstance(lib_res, float) else None,
+              "rst1920_int8_frame_ms": int8_frame1_ms,
+              "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"]},
+             **rst1920(rows1), **rst1920(int8_rows1, "rst1920_int8_")),
         {"name": "finish", "route": "cuda", "source": f"{SOURCES}/finish.cu",
          "replaces": f"{TPU_KERNEL}:1601", "launches": launches["finish"],
          "max_abs_err": fin["err"], "ms": fin["ms"], "plain_ms": fin["plain_ms"],
@@ -814,19 +1095,39 @@ def main() -> int:
          "dual_launches": launches2["finish"], "dual_max_abs_err": fin_dual["err"],
          "dual_ms": fin_dual["ms"], "dual_plain_ms": fin_dual["plain_ms"],
          "dual_bound_ms": max(fin_dual["bytes_ms"], fin_dual["ops_ms"]),
-         "chunk_captured": fused.chunk_graphs[N_FRAMES].captured["finish"]},
-        {"name": "act_stats", "route": "cuda", "source": f"{SOURCES}/act_stats.cu",
-         "replaces": f"{TPU_KERNEL}:929", "launches": int8_runs["int8"]["launches"]["act_stats"],
-         "max_abs_err": max(r["err"] for r in stats_rows),
-         "ms": sum(r["ms"] for r in stats_rows),
-         "plain_ms": sum(r["plain_ms"] for r in stats_rows),
-         "bound_ms": bound_sum(stats_rows), "bound_by": "operations" if a_ops >= a_bytes
-         else "bytes", "library_ms": None, "per": "one frame: 16 launches, check mode",
-         "calibrate_frame_ms": calibrate_ms,
-         "dual_launches": int8_runs["dual int8"]["launches"]["act_stats"]},
+         "chunk_captured": chunk["single"]["captured"]["finish"],
+         "rst1920_launches": launches1["finish"], "rst1920_max_abs_err": fin1["err"],
+         "rst1920_ms": fin1["ms"], "rst1920_plain_ms": fin1["plain_ms"],
+         "rst1920_bound_ms": max(fin1["bytes_ms"], fin1["ops_ms"]),
+         "rst1920_library_ms": None,
+         "rst1920_int8_launches": int8_run1["launches"]["finish"]},
+        dict({"name": "act_stats", "route": "cuda", "source": f"{SOURCES}/act_stats.cu",
+              "replaces": f"{TPU_KERNEL}:929",
+              "launches": int8_runs["int8"]["launches"]["act_stats"],
+              "max_abs_err": max(r["err"] for r in stats_rows),
+              "ms": sum(r["ms"] for r in stats_rows),
+              "plain_ms": sum(r["plain_ms"] for r in stats_rows),
+              "bound_ms": bound_sum(stats_rows), "bound_by": bound_by(stats_rows),
+              "library_ms": None, "per": "one frame: 16 launches (18 at rst1920), check mode",
+              "calibrate_frame_ms": calibrate_ms,
+              "dual_launches": int8_runs["dual int8"]["launches"]["act_stats"],
+              "rst1920_launches": int8_run1["launches"]["act_stats"],
+              "rst1920_library_ms": None, "rst1920_calibrate_frame_ms": calibrate1_ms},
+             **rst1920(stats_rows1)),
         probe_entry("mm", 57),
         probe_entry("band", 139),
+        {"name": "probe_repack", "route": "cuda", "source": f"{SOURCES}/probe_repack.cu",
+         "replaces": f"{REPACK_PROBE}:78",
+         "launches": sum(r["launches"] for r in repack.values()), "max_abs_err": 0.0,
+         "ms": sum(r["ms"] for r in repack.values()),
+         "plain_ms": sum(r["plain_ms"] for r in repack.values()),
+         "bound_ms": sum(r["bound"] for r in repack.values()), "bound_by": "bytes",
+         "library_ms": sum(r["library_ms"] for r in repack.values()),
+         "library_note": "one view().permute().contiguous() copy a case (torch.stack for "
+                         "interleave, F.pad after the copy for unfold2's zero lanes)",
+         "cases": repack},
     ]}
+    note(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

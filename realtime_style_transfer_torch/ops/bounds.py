@@ -6,18 +6,25 @@ operations over the peak rate for their type (NVIDIA H100 SXM data sheet,
 dense, at the 700 W limit).  Nothing here runs on a device.
 
 ``python -m realtime_style_transfer_torch.ops.bounds`` prints the bound of each
-row of the kernel table in ``PERF.md``; ``chip_smoke.py`` uses
-:func:`conv_stage_work`, :func:`finish_work`, :func:`act_stats_work` and
-:func:`probe_work` for the per-launch bounds of the kernels.
+row of the kernel table in ``PERF.md``, and of each launch of the divider-1
+frame (bf16 and int8) and each repack probe case; ``chip_smoke.py`` uses
+:func:`conv_stage_work`, :func:`finish_work`, :func:`act_stats_work`,
+:func:`probe_work` and :func:`repack_work` for the per-launch bounds of the
+kernels.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import torch
+
 from ..config import ShapeConfig
 from ..models.inference import plan_from_config
-from ..models.transfer import NUM_RESIDUAL_BLOCKS, TransferPlan
+from ..models.transfer import NUM_RESIDUAL_BLOCKS, StyleTransferNet, TransferPlan
+from ..weights import to_flax
+from .fused_transfer import FusedTransfer
+from .probe_repack import CASES, out_shape
 
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -75,7 +82,7 @@ def stage_inputs(plan: TransferPlan):
     h, w, c = plan.input_shape
     out = []
     for bi, (f, _k, s) in enumerate(plan.contract_schedule):
-        out.append((("stem", "c1", "c2")[bi], (h, w, c), False, False))
+        out.append((("stem", "c1", "c2", "c3")[bi], (h, w, c), False, False))
         h, w, c = -(-h // s), -(-w // s), f
     fb = plan.bottleneck_num_filters
     for ri in range(NUM_RESIDUAL_BLOCKS):
@@ -177,6 +184,31 @@ def frame_work(plan: TransferPlan, *, weight_bytes: int = 2,
                                            + weight_bytes * n_weights / frames)
 
 
+def plan_stage_work(spec: str, *, weight_bytes: int = 2) -> Dict[str, Tuple[float, float]]:
+    """(operations, bytes) of each ``conv_stage`` launch of one frame of
+    ``spec`` and of its ``finish``, single style, from the stages that
+    ``FusedTransfer`` builds on the CPU with seeded weights (all non-zero but
+    for the layout's padding); ``weight_bytes=1`` counts int8 weights."""
+    plan = plan_from_config(ShapeConfig.from_spec(spec))
+    torch.manual_seed(0)
+    engine = FusedTransfer(to_flax(StyleTransferNet(plan).state_dict()), plan, device="cpu")
+    work = {step.stage.name: conv_stage_work(
+        step.stage, skip_in=step.skip_in is not None, skip_out=step.skip_out is not None,
+        weight_bytes=weight_bytes) for step in engine.steps}
+    h, w, c = plan.output_shape
+    work["finish"] = finish_work(h, w, c, LANE)
+    return work
+
+
+def repack_work(case) -> float:
+    """Bytes of one batch of a repack probe case (``ops.probe_repack.Case``):
+    each input read once, each output written once, bf16; no operations."""
+    h, w, c = case.in_shape
+    oh, ow, oc = out_shape(case.op, case.in_shape, case.out_c)
+    n_inputs = 2 if case.op == "interleave" else 1
+    return float(2 * case.n * (n_inputs * h * w * c + oh * ow * oc))
+
+
 def table() -> Dict[str, Tuple[float, str, str]]:
     """Row -> (bound ms, bound by, what was counted)."""
     flagship = plan_from_config(ShapeConfig.from_spec("rst-960-120-128-17"))
@@ -201,6 +233,23 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     ops1, bytes1 = frame_work(divider1)
     rows["1e"] = bound_ms(ops1, bytes1) + (
         f"rst-1920-120-128-17 frame: {ops1 / 1e9:.1f} GFLOP bf16, {bytes1 / 1e6:.1f} MB",)
+    ops18, bytes18 = frame_work(divider1, weight_bytes=1)
+    rows["1e-int8"] = bound_ms(ops18, bytes18, "int8") + (
+        f"rst-1920-120-128-17 int8 frame: {ops18 / 1e9:.1f} GOP int8, "
+        f"{bytes18 / 1e6:.1f} MB",)
+    ops_c1, bytes_c1 = calibrate_frame_work(divider1)
+    rows["1e-cal"] = bound_ms(ops_c1, bytes_c1, "f32") + (
+        f"rst-1920 calibrate pass of one frame: {len(stage_inputs(divider1))} act_stats "
+        f"launches, {bytes_c1 / 1e6:.1f} MB",)
+    for kind, weight_bytes in (("bf16", 2), ("int8", 1)):
+        work = plan_stage_work("rst-1920-120-128-17", weight_bytes=weight_bytes)
+        fin_ops, fin_bytes = work.pop("finish")  # the finish is bf16 in every mode
+        for name, (ops_s, bytes_s) in work.items():
+            rows[f"1e {name} {kind}"] = bound_ms(ops_s, bytes_s, kind) + (
+                f"one launch: {ops_s / 1e9:.3f} G{'OP int8' if kind == 'int8' else 'FLOP'}, "
+                f"{bytes_s / 1e6:.2f} MB",)
+    rows["1e finish"] = bound_ms(fin_ops, fin_bytes, "f32") + (
+        f"one launch: {fin_bytes / 1e6:.2f} MB",)
     hb, wb, fb = 120, 240, flagship.bottleneck_num_filters
     act = hb * wb * fb
     rows["2"] = bound_ms(4 * act, 2 * 4 * act, "f32") + (
@@ -211,6 +260,10 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     m, k, n = 2400, 128, 128
     rows["4"] = bound_ms(2 * m * k * n, m * k + k * n + 4 * m * n, "int8") + (
         f"({m}, {k}) x ({k}, {n}) int8 matmul, s32 out",)
+    for name, case in CASES.items():
+        n_bytes = repack_work(case)
+        rows[f"6 {name}"] = bound_ms(0.0, n_bytes) + (
+            f"{case.op} of {case.n} x {case.in_shape} bf16, {n_bytes / 1e6:.1f} MB",)
     return rows
 
 

@@ -3,8 +3,13 @@
 Port of the host side of ``realtime_style_transfer_tpu/ops/pallas/
 fused_transfer.py`` (``FusedTransfer``).  The TPU version runs the whole net
 in one Pallas launch on an s2d-f4 packed grid; here each stage is one launch
-of :func:`.kernels.conv_stage` (stem, c1, c2, res0a..res4b, e0, e1, final)
-plus :func:`.kernels.finish`, on NHWC bf16 activations at true resolution.
+of :func:`.kernels.conv_stage` (stem, c1, c2, res0a..res4b, e0, e1, final on
+the flagship's 2-contract plan; the divider-1 plan adds c3 and e2) plus
+:func:`.kernels.finish`, on NHWC bf16 activations at true resolution.  The
+TPU kernel runs the divider-1 plan (``three_seg``) on two grids joined by
+fold2 / unfold2 repacks of c2's and e1's output bands; at true resolution the
+grid transitions are the stride-2 c3 and the transpose e2 themselves, so the
+stage loop has no repack.
 The TPU layouts survive only where data enters and leaves:
 :meth:`FusedTransfer.pack_frame_np` returns the JAX pack bit for bit
 (``(H/4, W/4, 384)`` bf16, subpixel-major) and
@@ -32,15 +37,16 @@ in the f32 epilogue; :meth:`FusedTransfer.check_act_saturation` measures how
 hard given scales clip.  The finish stays bf16/f32.
 
 **The scales table is the port's own layout**: ``(n_conv_stages, 128)`` f32,
-one row per entry of ``steps`` (16 on the flagship) with the first ``cin``
-entries used; the stem's 17 entries are the logical G-buffer channels.  The
-JAX table is ``(n_kernels, 512)`` over the TPU's packed (subpixel, channel)
-lanes, which mean nothing on the port's true-resolution NHWC stages, so a JAX
-scales file fails here at engine build with the shape error, and the reverse
-holds too.  ``check_act_saturation`` counts every input element once, so its
-``n_quantized`` is ``H * W * cin * frames``; the JAX kernel counts its
-band-halo rows twice.  The guard thresholds read ``max_ratio`` and the clip
-fraction, which do not depend on the tiling.
+one row per entry of ``steps`` (16 on the flagship, 18 on the divider-1
+plan) with the first ``cin`` entries used; the stem's 17 entries are the
+logical G-buffer channels.  The JAX table is ``(n_kernels, 512)`` over the
+TPU's packed (subpixel, channel) lanes, which mean nothing on the port's
+true-resolution NHWC stages, so a JAX scales file fails here at engine build
+with the shape error, and the reverse holds too.  ``check_act_saturation``
+counts every input element once, so its ``n_quantized`` is ``H * W * cin *
+frames``; the JAX kernel counts its band-halo rows twice.  The guard
+thresholds read ``max_ratio`` and the clip fraction, which do not depend on
+the tiling.
 """
 
 from __future__ import annotations
@@ -202,14 +208,8 @@ class FusedTransfer:
         if num_styles not in (1, 2):
             raise ValueError("fused kernel supports 1 or 2 styles "
                              "(reference blends exactly two)")
-        if plan.num_contract_blocks == 3:
-            if num_styles != 1:
-                raise ValueError(
-                    "dual-style is not yet supported on the 3-contract "
-                    "(divider-1) fused kernel; use stylize_packed")
-            raise NotImplementedError(
-                "the 3-contract (divider-1, three_seg) plan is not ported yet: "
-                "ROADMAP.md Queue 2 row 1e")
+        # the divider-1 family (rst-1920): c3 and e2 are two more stages
+        self.three_seg = plan.num_contract_blocks == 3
         if plan.bottleneck_num_filters > LANE:
             raise ValueError(f"fused kernel supports <= {LANE} bottleneck filters "
                              f"(got {plan.bottleneck_num_filters})")
@@ -231,11 +231,18 @@ class FusedTransfer:
         self.chunk_graphs: Dict[int, ChunkGraph] = {}
         h, w, _ = plan.input_shape
         self.hp, self.wp = h // 4, w // 4
-        if self.wp % 8:
-            raise ValueError(f"packed width {self.wp} must be a multiple of 8")
+        # the JAX kernel's bottleneck grid; the port keeps its checks so that
+        # both packages accept and refuse the same plans
+        self.hp_s, self.wp_s = (h // 8, w // 8) if self.three_seg else (self.hp, self.wp)
+        if self.wp % 8 or self.wp_s % 8:
+            raise ValueError(f"packed widths {self.wp}/{self.wp_s} must be multiples of 8")
         th = max(t for t in (8, 4, 2, 1) if self.hp % t == 0)
-        if self.hp // th < 2 or self.hp < 4:
+        if self.hp // th < 2 or self.hp_s < 4:
             raise ValueError("need at least 2 row bands")
+        if self.three_seg and num_styles != 1:
+            raise ValueError(
+                "dual-style is not yet supported on the 3-contract "
+                "(divider-1) fused kernel; use stylize_packed")
         self._build(variables)
 
     # ---- host-side weight prep ------------------------------------------
@@ -283,7 +290,7 @@ class FusedTransfer:
             scale, shift = bn_affine(f"contract_{bi}_bn")
             out_hw = (-(-cur[0] // s), -(-cur[1] // s))
             stage = make_conv_stage(
-                ("stem", "c1", "c2")[bi], kernel, bias, in_hw=cur, out_hw=out_hw,
+                ("stem", "c1", "c2", "c3")[bi], kernel, bias, in_hw=cur, out_hw=out_hw,
                 stride=s, pads=same(cur, k, s), epi="contract", device=dev,
                 pack_c=_round_up(16 * c_in, LANE) if bi == 0 else 0,
                 cscale=scale, cshift=shift, act_scale=scale_row(kernel))
@@ -589,9 +596,9 @@ class FusedTransfer:
 
         On CUDA one replay of a CUDA graph runs all N frames: the first call
         for an N warms the kernels up on one frame, then records the N-frame
-        stage sequence (moment zeroing, 16 ``conv_stage`` and 1 ``finish``
-        launch a frame) into a graph that reads and writes static buffers;
-        each call copies the packs and the style constants into them on the
+        stage sequence (moment zeroing, one ``conv_stage`` launch a conv stage
+        and 1 ``finish`` launch a frame) into a graph that reads and writes
+        static buffers; each call copies the packs and the style constants into them on the
         device and copies the frames out.  On the CPU the stage loop runs N
         times.
         """

@@ -55,7 +55,7 @@ from .packed_conv import pack, unpack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rst_torch_kernels"
-SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu")
+SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu", "probe_repack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BK = 32          # reduction slice of conv_stage.cu: K is padded to it
@@ -70,6 +70,7 @@ _ARGTYPES = {
     "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 4 + [_P],
     "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
+    "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

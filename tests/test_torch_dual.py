@@ -327,8 +327,9 @@ def test_argtypes_follow_the_extern_c_signatures():
             found[name] = [_CTYPES[" ".join(re.sub(r"\w+$", "", p.strip()).split())]
                            for p in params.split(",")]
     assert set(found) == set(kernels._ARGTYPES) == {"rst_conv_stage", "rst_finish",
-                                                    "rst_act_stats", "rst_probe"}
+                                                    "rst_act_stats", "rst_probe",
+                                                    "rst_repack"}
     for name, types in found.items():
         assert kernels._ARGTYPES[name] == types, name
     assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",
-                                    "rst_probe")] == [43, 15, 20, 10]
+                                    "rst_probe", "rst_repack")] == [43, 15, 20, 10, 12]

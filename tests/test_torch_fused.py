@@ -282,8 +282,12 @@ def test_unsupported_modes_raise_not_implemented(flagship_tiny):
         FusedTransfer(variables, TPLAN, quant="int8", device="cpu")
     three = tplan(TConfig(resolution_divider=1, num_channels=17))
     assert three.num_contract_blocks == 3
-    with pytest.raises(NotImplementedError, match="1e"):
-        FusedTransfer(variables, three, device="cpu")
+    # the three-seg plan is ported: the engine builds on TINY3 weights
+    tiny3 = tplan(TConfig(resolution_divider=15, bottleneck_res_y=8, bottleneck_num_filters=8,
+                          num_channels=17, hdr=True))
+    torch.manual_seed(0)
+    engine3 = FusedTransfer(to_flax(TNet(tiny3).state_dict()), tiny3, device="cpu")
+    assert engine3.three_seg and len(engine3.steps) == engine3.n_conv_stages == 18
     # the reference rejects dual style on this plan, before anything is built
     with pytest.raises(ValueError, match="dual-style is not yet supported on the 3-contract"):
         FusedTransfer(variables, three, num_styles=2, device="cpu")
