@@ -4,8 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``.
 
 1. Builds the CUDA kernels (``nvcc``, one process per source: conv_stage,
-   finish, act_stats, probe_int8, probe_repack) and prints the build time and
-   the ptxas report (registers, shared memory, spills) of every instantiation.
+   finish, act_stats, probe_int8, probe_repack, conv_matmul, probe_smem) and
+   prints the build time and the ptxas report (registers, shared memory,
+   spills) of every instantiation.
 2. Holds every stage kernel of the rst-960-120-128-17 frame against its plain
    PyTorch version on the card, on seeded inputs at the stage's real shapes:
    bf16 outputs within rtol 1.6e-2 (two bf16 ulps) + atol 1e-2 * max|ref|,
@@ -81,9 +82,31 @@ Run from the repository root: ``python3 chip_smoke.py``.
 6. The repack probe (``ops/probe_repack.py``): deinterleave, interleave,
    fold2 and unfold2 at the TPU probe's shapes and fold2 / unfold2 of the
    rst-1920 c2 output, each bit-equal to its plain version and timed beside
-   its bytes bound and one strided PyTorch copy; then ``F.instance_norm`` and
-   a VALID 3x3 ``F.conv2d`` at the bottleneck's shape, timed as the library
-   yardsticks of TPU kernel rows 2 and 3.
+   its bytes bound and one strided PyTorch copy; then ``F.instance_norm`` at
+   the bottleneck's shape, timed as the library yardstick of TPU kernel row 2.
+7. The packed path (``models/transfer_packed.py``) and its tap-matmul kernel
+   ``conv_matmul`` (``csrc/conv_matmul.cu``).  The kernel against its plain
+   version at ``tests/test_pallas_conv.py``'s shapes, at the four launches of
+   the path (the packed stem, 5x5 68->128 with the contract epilogue, and the
+   packed final conv, 3x3 256->48 and 512->192, at rst-960 and rst-1920) in
+   bf16 with phase 2's limits, and once in f32 at rtol 1e-4 + atol 1e-4 (the
+   JAX f32 tests' limit); each launch timed beside its bound, the plain version
+   and ``F.conv2d`` on the same padded input.  Then 8 flagship frames, one
+   style and two (the ramp map), through ``video.stylize_video`` on a
+   ``PackedTransfer`` with ``conv_backend="pallas"``: 2 ``conv_matmul``
+   launches a frame and none of the fused kernels; each frame held against the
+   eager f32 net (rtol 0.08, atol 0.03), the packed path with the kernel's
+   plain version and ``FusedTransfer``'s frame on the same weights (rtol 0.05,
+   atol 0.02, median < 5e-3).  Then rst-1920-120-128-17 with two styles:
+   ``choose_path`` must give ``"packed"``, ``FusedTransfer`` must refuse the
+   plan with the JAX message, and 8 frames go through ``stylize_video`` with
+   the same checks (no fused frame exists to compare).  Frame times of the
+   packed path (``pallas`` and ``xla``) beside the fused frame, and the video
+   loop's host latency.  Last, the shared-memory probe (``ops/probe_smem.py``):
+   (a) every size of the sweep up to the card's opt-in cap fills and reads
+   back its buffer, and 1 KB above the cap is refused; (b) the fixed tap-matmul
+   workload at 8 and 32 repetitions under each reservation, within 1e-3 of the
+   largest value of its f32 plain version, timed with its blocks per SM.
 
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
@@ -109,6 +132,8 @@ SOURCES = "realtime_style_transfer_torch/csrc"
 PROBE = "tools/probe_int8_mxu.py"
 REPACK_PROBE = "tools/probe_repack_ops.py"
 DUAL_REFUSAL = "dual-style is not yet supported on the 3-contract"
+CONV_MATMUL = "realtime_style_transfer_tpu/ops/pallas/conv_matmul.py"
+SMEM_PROBE = "tools/probe_vmem_cap.py"
 
 
 def gpu_line() -> str:
@@ -128,15 +153,17 @@ def main() -> int:
 
     from realtime_style_transfer_torch.config import ShapeConfig
     from realtime_style_transfer_torch.models.inference import make_inference_model
-    from realtime_style_transfer_torch.ops import kernels, probe_int8, probe_repack
+    from realtime_style_transfer_torch.models.transfer_packed import PackedTransfer
+    from realtime_style_transfer_torch.ops import (
+        conv_matmul, kernels, probe_int8, probe_repack, probe_smem)
     from realtime_style_transfer_torch.ops.bounds import (
-        PEAK_FLOPS, act_stats_work, bound_ms, conv_stage_work, finish_work, probe_work,
-        repack_work)
+        PEAK_FLOPS, act_stats_work, bound_ms, conv_matmul_launches, conv_matmul_work,
+        conv_stage_work, finish_work, probe_work, repack_work, smem_work)
     from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
     from realtime_style_transfer_torch.ops.kernels import (
         Prologue, act_stats, act_stats_plain, conv_stage, conv_stage_plain, finish,
         finish_plain, unpack_frame)
-    from realtime_style_transfer_torch.video import stylize_video
+    from realtime_style_transfer_torch.video import choose_path, stylize_video
     from realtime_style_transfer_torch.weights import to_flax
 
     torch.backends.cudnn.allow_tf32 = False
@@ -955,7 +982,7 @@ def main() -> int:
          "squares (of the sums, to the largest): "
          + ", ".join(f"{k} {v[0]:.2e} ({v[1]:.2e})" for k, v in moments1.items()))
 
-    # ---- phase 6: the repack probe and the library yardsticks of rows 2, 3 -----
+    # ---- phase 6: the repack probe and the library yardstick of row 2 ---------
     print(f"phase 6: {REPACK_PROBE} on Hopper", flush=True)
     repack = {}
     for name, case in probe_repack.CASES.items():
@@ -1003,16 +1030,316 @@ def main() -> int:
     b_cin = torch.rand(fb, generator=gen, device=dev) * 0.4 - 0.2
     lib_cin = yardstick("F.instance_norm", lambda: F.instance_norm(x_cin, weight=g_cin,
                                                                    bias=b_cin, eps=eps))
-    x_conv = torch.randn((1, fb, hb + 2, wb_ + 2), generator=gen, device=dev).to(bf16) \
-        .contiguous(memory_format=torch.channels_last)
-    w_conv = (torch.randn((fb, fb, 3, 3), generator=gen, device=dev) * 0.05).to(bf16) \
-        .contiguous(memory_format=torch.channels_last)
-    lib_conv = yardstick("F.conv2d", lambda: F.conv2d(x_conv, w_conv))
     note(f"library yardstick, row 2: F.instance_norm bf16 (1, {fb}, {hb}, {wb_}) with a "
          f"per-channel affine: {lib_cin if isinstance(lib_cin, str) else f'{lib_cin:.4f} ms'}")
-    note(f"library yardstick, row 3: F.conv2d bf16 VALID 3x3 {fb}->{fb} on "
-         f"(1, {fb}, {hb + 2}, {wb_ + 2}): "
-         f"{lib_conv if isinstance(lib_conv, str) else f'{lib_conv:.4f} ms'}")
+
+    # ---- phase 7: the packed path with conv_matmul; the shared-memory probe -----
+    print(f"phase 7: the packed path (stylize_packed) with {CONV_MATMUL}", flush=True)
+    t7 = time.perf_counter()
+    cmm = conv_matmul.conv_valid_matmul
+
+    def close_f32(name, got, ref) -> float:
+        """JAX's f32 limit for the tap-matmul conv: rtol 1e-4 + atol 1e-4."""
+        err = (got - ref).abs()
+        ok = bool((err <= 1e-4 + 1e-4 * ref.abs()).all()) and bool(torch.isfinite(got).all())
+        print(f"  {name}: max_abs_err={err.max().item():.3e} limit=rtol 1e-4 + atol 1e-4 "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+        return err.max().item()
+
+    def check_conv_matmul(label, padded, k, cout, dtype=bf16, epilogue="none", timed=False):
+        """conv_matmul on a seeded (Hp, Wp, Cin) image against its plain
+        version; timed beside its bound, the plain version and F.conv2d."""
+        cin = padded[2]
+        x = torch.randn(padded, generator=gen, device=dev).to(dtype)
+        w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
+             * (1.0 / (k * k * cin) ** 0.5)).to(dtype)
+        epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
+                   scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
+                   shift=torch.randn(cout, generator=gen, device=dev) * 0.1, epilogue=epilogue)
+        got = cmm(x, w, **epi)
+        want = conv_matmul.conv_valid_matmul_plain(x, w, **epi)
+        torch.cuda.synchronize()
+        print(f"conv_matmul {label}: {tuple(padded)} x {k}x{k} -> {tuple(got.shape)} "
+              f"{str(dtype)[6:]} epilogue={epilogue}")
+        if dtype == bf16:
+            err = close(f"conv_matmul {label}", got, want, 1.6e-2, 1e-2)
+        else:
+            err = close_f32(f"conv_matmul {label}", got, want)
+        row = dict(err=err)
+        if timed:
+            xp = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            ops, n_bytes = conv_matmul_work(*padded[:2], k, k, cin, cout, w.element_size())
+            bound, by = bound_ms(ops, n_bytes, "bf16" if dtype == bf16 else "f32")
+            row.update(ms=cuda_ms(lambda: cmm(x, w, **epi), 20),
+                       plain_ms=cuda_ms(lambda: conv_matmul.conv_valid_matmul_plain(x, w, **epi), 3),
+                       library_ms=cuda_ms(lambda: F.conv2d(xp, wl), 20), bound=bound, by=by)
+            note(f"conv_matmul {label}: kernel {row['ms']:.4f} ms "
+                 f"({ops / row['ms'] / 1e9:.1f} TFLOP/s, {bound / row['ms']:.1%} of the bound), "
+                 f"plain {row['plain_ms']:.4f} ms, F.conv2d {str(dtype)[6:]} VALID "
+                 f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+                 f"{n_bytes / 1e6:.1f} MB)")
+        return row
+
+    # tests/test_pallas_conv.py's shapes (padded input, k, cout) and its epilogue case
+    for label, padded, k, cout, epilogue in (
+            ("test (12, 20, 8) k5", (16, 24, 8), 5, 6, "none"),
+            ("test (16, 16, 4) k3", (18, 18, 4), 3, 6, "none"),
+            ("test (8, 24, 17) k9", (16, 32, 17), 9, 6, "none"),
+            ("test contract (10, 12, 4) k3", (10, 12, 4), 3, 6, "contract"),
+            ("test bias, cout 7", (14, 18, 5), 3, 7, "bias")):
+        check_conv_matmul(label, padded, k, cout, epilogue=epilogue)
+    xs = torch.randn((2, 12, 16, 5), generator=gen, device=dev).to(bf16)
+    ws = (torch.randn((3, 3, 5, 7), generator=gen, device=dev) * 0.2).to(bf16)
+    got_same = conv_matmul.conv_same_batched(xs, ws)
+    xs_pad = F.pad(xs, (0, 0, 1, 1, 1, 1))
+    close("conv_same_batched (2, 12, 16, 5) k3 -> 7", got_same,
+          torch.stack([conv_matmul.conv_valid_matmul_plain(xs_pad[i], ws) for i in range(2)]),
+          1.6e-2, 1e-2)
+    launch_rows = {}
+    for label, spec_plan in (("rst960", plan), ("rst1920", plan1)):
+        for seam, shape in conv_matmul_launches(spec_plan).items():
+            hp, wp, k, _, cin, cout = shape
+            launch_rows[f"{label} {seam}"] = check_conv_matmul(
+                f"{label} packed {seam}", (hp, wp, cin), k, cout,
+                epilogue="contract" if seam == "stem" else "none", timed=True)
+    hp, wp, k, _, cin, cout = conv_matmul_launches(plan)["final"]
+    f32_row = check_conv_matmul("rst960 packed final, f32", (hp, wp, cin), k, cout,
+                                dtype=f32, timed=True)
+    if failed("phase 7, conv_matmul"):
+        return 1
+
+    def check_packed_frames(label, engine, net, results, frames, sp, weights_t=None,
+                            fused_engine=None, fused_prep=None):
+        """Each packed frame against the eager f32 net, the packed path with
+        conv_matmul's plain version and, where given, the fused kernel path."""
+        oh, ow, _ = engine.plan.output_shape
+        if sorted(results) != list(range(len(frames))):
+            failures.append(f"{label} frames delivered")
+        errs = {"f32": [], "plain": [], "fused": []}
+        with torch.no_grad():
+            for i, frame in enumerate(frames):
+                got = torch.from_numpy(results[i]).to(dev)
+                if tuple(got.shape) != (oh, ow, 3) or not bool(torch.isfinite(got).all()):
+                    failures.append(f"{label} frame {i} shape/finite")
+                    continue
+                content = torch.from_numpy(frame)[None].to(dev)
+                want32 = net(content, sp, weights_t)[0]
+                e32 = (got - want32).abs()
+                ok32 = bool((e32 <= 0.03 + 0.08 * want32.abs()).all())
+                refs = [("plain", engine(content, sp, weights_t, conv_backend="pallas",
+                                         plain=True)[0])]
+                if fused_engine is not None:
+                    refs.append(("fused", fused_engine.stylize_prepacked(
+                        fused_engine.pack_frame_np(frame[None]), fused_prep)[0]))
+                errs["f32"].append(e32.max().item())
+                line = (f"  {label} frame {i}: vs eager f32 max {e32.max().item():.3e} "
+                        f"{'ok' if ok32 else 'FAIL'}")
+                ok = ok32
+                for name, ref in refs:
+                    e = (got - ref).abs()
+                    okr = bool((e <= 0.02 + 0.05 * ref.abs()).all()) and e.median().item() < 5e-3
+                    errs[name].append(e.max().item())
+                    line += (f"; vs {name} max {e.max().item():.3e} median "
+                             f"{e.median().item():.3e} {'ok' if okr else 'FAIL'}")
+                    ok = ok and okr
+                print(line, flush=True)
+                if not ok:
+                    failures.append(f"{label} frame {i}")
+        return errs
+
+    def run_packed_video(label, mdl, engine, styles_in, frs, weights_map=None):
+        """``stylize_video`` on the packed engine with conv_matmul: 2 launches
+        a frame (the stem and the final conv), the warm-up frame included."""
+        res = {}
+        cmm.launches = 0
+        kernels.reset_launch_counts()
+        run_p = stylize_video(mdl, engine, styles_in, frs, lambda i, fr: res.__setitem__(i, fr),
+                              style_weights=weights_map, conv_backend="pallas")
+        torch.cuda.synchronize()
+        counts = {"conv_matmul": cmm.launches, "conv_stage": kernels.conv_stage.launches,
+                  "finish": kernels.finish.launches}
+        want = {"conv_matmul": 2 * (len(frs) + 1), "conv_stage": 0, "finish": 0}
+        print(f"{label} launches: {counts}, expected {want} ({len(frs)} frames and a warm-up, "
+              f"2 conv_matmul a frame)")
+        if counts != want:
+            failures.append(f"{label} launch counts")
+        return run_p, res, counts["conv_matmul"]
+
+    packed_engine = PackedTransfer(variables, plan)
+    run_ps, res_ps, launches_ps = run_packed_video("packed", model, packed_engine, style_image,
+                                                   frames)
+    sp_ps = run_ps["style_params"]
+    errs_ps = check_packed_frames("packed", packed_engine, model.transfer, res_ps, frames, sp_ps,
+                                  fused_engine=fused, fused_prep=fused.prepare_style(sp_ps))
+    packed_engine2 = PackedTransfer(variables2, plan, num_styles=2)
+    run_pd, res_pd, launches_pd = run_packed_video("packed dual", model2, packed_engine2,
+                                                   style_images, frames2, ramp)
+    sp_pd = run_pd["style_params"]
+    errs_pd = check_packed_frames("packed dual", packed_engine2, model2.transfer, res_pd, frames2,
+                                  sp_pd, ramp_t, fused2, fused2.prepare_style(sp_pd, ramp_t))
+    if failed("phase 7, flagship packed frames"):
+        return 1
+
+    print(f"phase 7, {SPEC_1920} with two styles: choose_path and the packed path", flush=True)
+    cfg12 = ShapeConfig.from_spec(SPEC_1920, num_styles=2)
+    model12 = make_inference_model(cfg12, seed=SEED)
+    variables12 = to_flax(model12.transfer.state_dict())
+    path12 = choose_path(cfg12, plan1, dev)
+    print(f"{SPEC_1920}, two styles: choose_path -> {path12!r} (want 'packed'); "
+          f"single style -> {choose_path(ShapeConfig.from_spec(SPEC_1920), plan1, dev)!r}")
+    if path12 != "packed" or choose_path(cfg, plan, dev) != "fused":
+        failures.append("choose_path")
+    try:
+        FusedTransfer(variables12, plan1, num_styles=2)
+        failures.append(f"{SPEC_1920}: FusedTransfer accepted two styles")
+    except ValueError as exc:
+        print(f"  FusedTransfer refuses it: {exc}")
+        if DUAL_REFUSAL not in str(exc):
+            failures.append(f"{SPEC_1920}: two styles refused with another message")
+    packed12 = PackedTransfer(variables12, plan1, num_styles=2)
+    rng12 = np.random.default_rng(SEED + 3)
+    styles12 = [rng12.random((h1, w1, 3), dtype=np.float32) for _ in range(2)]
+    frames12 = [rng12.random(plan1.input_shape, dtype=np.float32) for _ in range(N_FRAMES)]
+    ramp12 = np.broadcast_to(np.linspace(0, 1, h1, dtype=np.float32)[:, None, None],
+                             (h1, w1, 1)).copy()
+    ramp12_t = torch.from_numpy(ramp12)[None].to(dev)
+    run_p12, res_p12, launches_p12 = run_packed_video("rst1920 dual packed", model12, packed12,
+                                                      styles12, frames12, ramp12)
+    sp12 = run_p12["style_params"]
+    if tuple(sp12.shape) != (1, 2, 2678) or not torch.isfinite(sp12).all():
+        failures.append("rst1920 dual style params")
+    errs_p12 = check_packed_frames("rst1920 dual packed", packed12, model12.transfer, res_p12,
+                                   frames12, sp12, ramp12_t)
+    if failed("phase 7, rst1920 dual"):
+        return 1
+
+    content_p = torch.from_numpy(frames[0])[None].to(dev)
+    content_p2 = torch.from_numpy(frames2[0])[None].to(dev)
+    content_p12 = torch.from_numpy(frames12[0])[None].to(dev)
+    packed_p = fused.pack_frame_np(frames[0][None]).to(dev)
+    packed_p2 = fused2.pack_frame_np(frames2[0][None]).to(dev)
+    prep_ps, prep_pd = fused.prepare_style(sp_ps), fused2.prepare_style(sp_pd, ramp_t)
+    with torch.no_grad():
+        frame_times = {
+            "packed pallas": cuda_ms(lambda: packed_engine(content_p, sp_ps,
+                                                           conv_backend="pallas"), 10),
+            "packed xla": cuda_ms(lambda: packed_engine(content_p, sp_ps, conv_backend="xla"), 10),
+            "fused": cuda_ms(lambda: fused.stylize_prepacked(packed_p, prep_ps), 10),
+            "dual packed pallas": cuda_ms(lambda: packed_engine2(
+                content_p2, sp_pd, ramp_t, conv_backend="pallas"), 10),
+            "dual packed xla": cuda_ms(lambda: packed_engine2(
+                content_p2, sp_pd, ramp_t, conv_backend="xla"), 10),
+            "dual fused": cuda_ms(lambda: fused2.stylize_prepacked(packed_p2, prep_pd), 10),
+            "rst1920 dual packed pallas": cuda_ms(lambda: packed12(
+                content_p12, sp12, ramp12_t, conv_backend="pallas"), 5),
+            "rst1920 dual packed xla": cuda_ms(lambda: packed12(
+                content_p12, sp12, ramp12_t, conv_backend="xla"), 5),
+            "rst1920 dual packed plain": cuda_ms(lambda: packed12(
+                content_p12, sp12, ramp12_t, conv_backend="pallas", plain=True), 2),
+        }
+    for label, ms_ in frame_times.items():
+        note(f"frame, {label} ({'fused stylize_prepacked, pack on the card' if 'fused' in label else 'PackedTransfer, content in, (1, H, W, 3) f32 out'}): "
+             f"{ms_:.4f} ms")
+    def device_share(fn, n=5):
+        """torch.profiler over n calls of ``fn``: (CUDA activities, their
+        summed device time, the host wall time with the profiler on) in ms,
+        or the reason it measured nothing."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        except (RuntimeError, AttributeError) as exc:  # a measurement, not a check
+            return f"not measured: {str(exc)[:120]}"
+        if not acts:
+            return "not measured: the profiler recorded no device activity"
+        busy = sum(e.time_range.elapsed_us() for e in acts) / 1e3
+        return dict(activities=len(acts) / n, busy_ms=busy / n, wall_ms=wall / n,
+                    idle_share=1.0 - busy / wall)
+
+    with torch.no_grad():
+        profiles = {
+            "packed pallas": device_share(lambda: packed_engine(content_p, sp_ps,
+                                                                conv_backend="pallas")),
+            "fused": device_share(lambda: fused.stylize_prepacked(packed_p, prep_ps)),
+            "rst1920 dual packed pallas": device_share(lambda: packed12(
+                content_p12, sp12, ramp12_t, conv_backend="pallas")),
+        }
+    for label, prof_ in profiles.items():
+        if isinstance(prof_, str):
+            note(f"profile, {label}: {prof_}")
+        else:
+            note(f"profile, {label} (torch.profiler on, 5 frames): {prof_['activities']:.0f} "
+                 f"device activities a frame, device busy {prof_['busy_ms']:.4f} ms of "
+                 f"{prof_['wall_ms']:.4f} ms host wall: idle share {prof_['idle_share']:.1%}")
+    for label, run_ in (("packed", run_ps), ("dual packed", run_pd), ("rst1920 dual packed", run_p12)):
+        lat_ = sorted(run_["latency_s"])
+        note(f"{label} video loop host latency per frame ({len(lat_)} frames, conv_backend "
+             f"'pallas'): median {lat_[len(lat_) // 2] * 1e3:.4f} ms, max {lat_[-1] * 1e3:.4f} ms")
+    note("packed frames: max err vs eager f32 / packed plain / fused: "
+         + "; ".join(f"{label} {max(e['f32']):.3e} / {max(e['plain']):.3e} / "
+                     f"{max(e['fused']) if e['fused'] else float('nan'):.3e}"
+                     for label, e in (("single", errs_ps), ("dual", errs_pd),
+                                      ("rst1920 dual", errs_p12))))
+
+    print("phase 7, probe: Hopper's opt-in dynamic shared memory a block "
+          f"({SMEM_PROBE} on Hopper)", flush=True)
+    first = probe_smem.try_alloc(48 * 1024, dev)
+    optin = first["optin"]
+    sizes = probe_smem.sweep_bytes(optin)
+    probe_smem.try_alloc.launches = probe_smem.work.launches = 0
+    smem_rows = []
+    for nb in sizes:
+        r = probe_smem.try_alloc(nb, dev)
+        want_ok = nb <= optin
+        good = r["alloc_ok"] == want_ok and (want_ok or r["error"] != 0)
+        smem_rows.append(r)
+        note(f"smem probe (a) {nb} bytes ({nb / 1024:.0f} KB): alloc_ok {r['alloc_ok']}, "
+             f"{r['blocks_per_sm']} blocks/SM, CUDA error {r['error']} "
+             f"(expected {'to run' if want_ok else 'a refusal'}) {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(f"smem probe alloc {nb}")
+    xw, ww = probe_smem.make_work_inputs(dev, SEED)
+    work_rows = []
+    for nb in [0] + sizes[:-1]:
+        got = probe_smem.work(xw, ww, probe_smem.REPS[0], nb)
+        bps = probe_smem.work.blocks_per_sm
+        want = probe_smem.work_plain(xw, ww, probe_smem.REPS[0])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = err <= 1e-3 * want.abs().max().item()
+        t_lo = cuda_ms(lambda: probe_smem.work(xw, ww, probe_smem.REPS[0], nb), 20)
+        t_hi = cuda_ms(lambda: probe_smem.work(xw, ww, probe_smem.REPS[1], nb), 20)
+        slope = (t_hi - t_lo) / (probe_smem.REPS[1] - probe_smem.REPS[0])
+        work_rows.append(dict(bytes=nb, blocks_per_sm=bps, err=err, ms_lo=t_lo, ms_hi=t_hi,
+                              slope_ms=slope))
+        note(f"smem probe (b) {nb / 1024:.0f} KB reserved: {bps} blocks/SM, x{probe_smem.REPS[0]} "
+             f"{t_lo:.4f} ms, x{probe_smem.REPS[1]} {t_hi:.4f} ms, slope {slope * 1e3:.3f} us a "
+             f"repetition; max_abs_err {err:.3e} (limit 1e-3 x max) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"smem probe work {nb}")
+    work_plain_ms = cuda_ms(lambda: probe_smem.work_plain(xw, ww, probe_smem.REPS[1]), 5)
+    ops_w, bytes_w = smem_work(probe_smem.REPS[1])
+    bound_w, by_w = bound_ms(ops_w, bytes_w)
+    base = work_rows[0]
+    note(f"smem probe (b): the slowest reservation takes "
+         f"{max(r['ms_hi'] for r in work_rows) / base['ms_hi']:.3f}x the unreserved x"
+         f"{probe_smem.REPS[1]} launch; the bound of one x{probe_smem.REPS[1]} launch "
+         f"{bound_w:.4f} ms ({by_w}), plain f32 {work_plain_ms:.4f} ms")
+    if failed("phase 7, probe"):
+        return 1
+    note(f"phase 7 total: {time.perf_counter() - t7:.1f} s")
 
     # ---- the kernel table -------------------------------------------------------
     def dual_sum(key):
@@ -1032,6 +1359,28 @@ def main() -> int:
                 f"{prefix}ms": sum(r["ms"] for r in rs),
                 f"{prefix}plain_ms": sum(r["plain_ms"] for r in rs),
                 f"{prefix}bound_ms": bound_sum(rs), f"{prefix}bound_by": bound_by(rs)}
+
+    def conv_matmul_entry():
+        """One rst960 packed frame's two launches (stem + final), and each
+        launch of both plans."""
+        pair = [launch_rows["rst960 stem"], launch_rows["rst960 final"]]
+        pair1 = [launch_rows["rst1920 stem"], launch_rows["rst1920 final"]]
+        return {"name": "conv_matmul", "route": "cuda", "source": f"{SOURCES}/conv_matmul.cu",
+                "replaces": f"{CONV_MATMUL}:40", "launches": launches_ps,
+                "max_abs_err": max(r["err"] for r in launch_rows.values()),
+                "ms": sum(r["ms"] for r in pair), "plain_ms": sum(r["plain_ms"] for r in pair),
+                "bound_ms": sum(r["bound"] for r in pair), "bound_by": "operations",
+                "library_ms": sum(r["library_ms"] for r in pair),
+                "per": "one rst960 packed frame: the stem and the final conv",
+                "library_note": "F.conv2d bf16 VALID on the same padded input",
+                "dual_launches": launches_pd, "rst1920_dual_launches": launches_p12,
+                "rst1920_ms": sum(r["ms"] for r in pair1),
+                "rst1920_plain_ms": sum(r["plain_ms"] for r in pair1),
+                "rst1920_bound_ms": sum(r["bound"] for r in pair1),
+                "rst1920_library_ms": sum(r["library_ms"] for r in pair1),
+                "f32_max_abs_err": f32_row["err"], "f32_ms": f32_row["ms"],
+                "launch_rows": launch_rows, "frame_ms": frame_times,
+                "frame_profile": profiles}
 
     stats_rows = [r["stats"] for r in int8_rows.values()]
     stats_rows1 = [r["stats"] for r in int8_rows1]
@@ -1126,6 +1475,16 @@ def main() -> int:
          "library_note": "one view().permute().contiguous() copy a case (torch.stack for "
                          "interleave, F.pad after the copy for unfold2's zero lanes)",
          "cases": repack},
+        conv_matmul_entry(),
+        {"name": "probe_smem", "route": "cuda", "source": f"{SOURCES}/probe_smem.cu",
+         "replaces": f"{SMEM_PROBE}:73",
+         "launches": probe_smem.try_alloc.launches + probe_smem.work.launches,
+         "max_abs_err": max(r["err"] for r in work_rows), "ms": base["ms_hi"],
+         "plain_ms": work_plain_ms, "bound_ms": bound_w, "bound_by": by_w, "library_ms": None,
+         "per": f"one x{probe_smem.REPS[1]} work launch, no reservation",
+         "library_note": "no one PyTorch call computes the repeated tap sum",
+         "optin_bytes": optin, "alloc": smem_rows, "work": work_rows,
+         "also_replaces": f"{SMEM_PROBE}:119"},
     ]}
     note(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

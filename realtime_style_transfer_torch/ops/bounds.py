@@ -7,10 +7,11 @@ dense, at the 700 W limit).  Nothing here runs on a device.
 
 ``python -m realtime_style_transfer_torch.ops.bounds`` prints the bound of each
 row of the kernel table in ``PERF.md``, and of each launch of the divider-1
-frame (bf16 and int8) and each repack probe case; ``chip_smoke.py`` uses
+frame (bf16 and int8), each repack probe case, each ``conv_matmul`` launch of
+a packed frame and the shared-memory probe's workload; ``chip_smoke.py`` uses
 :func:`conv_stage_work`, :func:`finish_work`, :func:`act_stats_work`,
-:func:`probe_work` and :func:`repack_work` for the per-launch bounds of the
-kernels.
+:func:`probe_work`, :func:`repack_work`, :func:`conv_matmul_work` and
+:func:`smem_work` for the per-launch bounds of the kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from ..models.inference import plan_from_config
 from ..models.transfer import NUM_RESIDUAL_BLOCKS, StyleTransferNet, TransferPlan
 from ..weights import to_flax
 from .fused_transfer import FusedTransfer
+from .packed_conv import _axis_plan, _pads
 from .probe_repack import CASES, out_shape
+from .probe_smem import C as SMEM_C, M as SMEM_M, TAPS as SMEM_TAPS
 
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -117,6 +120,45 @@ def probe_work(ks: int, nrep: int, quant: bool) -> Tuple[float, float]:
     else:
         n_in = 12 * 240 * c * 2
     return ops, float(n_in + ks * ks * c * c * (1 if quant else 2) + 4 * m * c)
+
+
+def conv_matmul_work(hp: int, wp: int, kh: int, kw: int, cin: int, cout: int,
+                     itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one ``conv_matmul`` launch on a padded (hp, wp,
+    cin) image: the dense packed product ``2 h w kh kw cin cout`` (the TPU
+    kernel's ``CostEstimate``, structural zeros of the packed kernel
+    included); the padded input, the output and the weights once."""
+    h, w = hp - kh + 1, wp - kw + 1
+    ops = 2.0 * h * w * kh * kw * cin * cout
+    return ops, float((hp * wp * cin + h * w * cout + kh * kw * cin * cout) * itemsize)
+
+
+def conv_matmul_launches(plan: TransferPlan) -> Dict[str, Tuple[int, ...]]:
+    """(hp, wp, kh, kw, cin, cout) of the two ``conv_matmul`` launches of
+    one packed frame with ``conv_backend='pallas'``: the packed stem (fin =
+    fout = 2) and the packed final conv (fin = fout = 2^E)."""
+    h, w, c = plan.input_shape
+    out = {}
+    seams = (("stem", plan.contract_schedule[0], 2, c),
+             ("final", plan.expand_blocks[-1], 2 ** plan.num_expand_blocks,
+              plan.expand_blocks[-2][0] if plan.num_expand_blocks else
+              plan.bottleneck_num_filters))
+    for name, (cout, k, _s), f, cin in seams:
+        _, lo, extent, _ = _axis_plan(k, 1, f, f)
+        hp, wp = h // f, w // f
+        pads_y, pads_x = _pads(lo, extent, 1, hp, hp), _pads(lo, extent, 1, wp, wp)
+        out[name] = (hp + sum(pads_y), wp + sum(pads_x), extent, extent, f * f * cin,
+                     f * f * cout)
+    return out
+
+
+def smem_work(reps: int) -> Tuple[float, float]:
+    """(operations, bytes) of one launch of the shared-memory probe's
+    workload: ``reps`` times three (2400, 128) x (128, 128) bf16 products;
+    x and the weights read once, the f32 result written once."""
+    ops = 2.0 * SMEM_M * SMEM_C * SMEM_C * SMEM_TAPS * reps
+    return ops, float(2 * SMEM_M * SMEM_C + 2 * SMEM_TAPS * SMEM_C * SMEM_C
+                      + 4 * SMEM_M * SMEM_C)
 
 
 def finish_work(h: int, w: int, c: int, out_c: int, *,
@@ -254,9 +296,12 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     act = hb * wb * fb
     rows["2"] = bound_ms(4 * act, 2 * 4 * act, "f32") + (
         f"CIN of one ({hb}, {wb}, {fb}) f32 activation",)
-    res_macs = act * 9 * fb
-    rows["3"] = bound_ms(2 * res_macs, 2 * (2 * act + 9 * fb * fb)) + (
-        f"one {hb}x{wb}x{fb} 3x3 conv, bf16",)
+    for label, plan in (("rst-960", flagship), ("rst-1920", divider1)):
+        for seam, shape in conv_matmul_launches(plan).items():
+            ops_m, bytes_m = conv_matmul_work(*shape)
+            rows[f"3 {label} {seam}"] = bound_ms(ops_m, bytes_m) + (
+                f"packed {seam}: ({shape[0]}, {shape[1]}, {shape[4]}) -> {shape[5]}, "
+                f"{shape[2]}x{shape[3]}, {ops_m / 1e9:.2f} GFLOP bf16, {bytes_m / 1e6:.1f} MB",)
     m, k, n = 2400, 128, 128
     rows["4"] = bound_ms(2 * m * k * n, m * k + k * n + 4 * m * n, "int8") + (
         f"({m}, {k}) x ({k}, {n}) int8 matmul, s32 out",)
@@ -264,6 +309,11 @@ def table() -> Dict[str, Tuple[float, str, str]]:
         n_bytes = repack_work(case)
         rows[f"6 {name}"] = bound_ms(0.0, n_bytes) + (
             f"{case.op} of {case.n} x {case.in_shape} bf16, {n_bytes / 1e6:.1f} MB",)
+    for reps in (8, 32):
+        ops_w, bytes_w = smem_work(reps)
+        rows[f"5 work x{reps}"] = bound_ms(ops_w, bytes_w) + (
+            f"{reps} x 3 ({SMEM_M}, {SMEM_C}) x ({SMEM_C}, {SMEM_C}) bf16 products, "
+            f"{ops_w / 1e9:.2f} GFLOP",)
     return rows
 
 

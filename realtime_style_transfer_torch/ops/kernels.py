@@ -32,7 +32,10 @@ is recorded); :func:`replay_graph` counts the replays of such a graph.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
-load through ``ctypes``.
+load through ``ctypes``.  :data:`SOURCES` lists every CUDA source of the port;
+the wrappers of the packed path's ``conv_matmul`` and of the probes live in
+their own modules (:mod:`.conv_matmul`, :mod:`.probe_int8`,
+:mod:`.probe_repack`, :mod:`.probe_smem`).
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ from .packed_conv import pack, unpack
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rst_torch_kernels"
-SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu", "probe_repack.cu")
+SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu", "probe_repack.cu",
+           "conv_matmul.cu", "probe_smem.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BK = 32          # reduction slice of conv_stage.cu: K is padded to it
@@ -71,6 +75,8 @@ _ARGTYPES = {
     "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
+    "rst_conv_matmul": [_P] * 6 + [_I] * 8 + [_P],
+    "rst_probe_smem": [_I] * 4 + [_P] * 5,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -328,8 +328,10 @@ def test_argtypes_follow_the_extern_c_signatures():
                            for p in params.split(",")]
     assert set(found) == set(kernels._ARGTYPES) == {"rst_conv_stage", "rst_finish",
                                                     "rst_act_stats", "rst_probe",
-                                                    "rst_repack"}
+                                                    "rst_repack", "rst_conv_matmul",
+                                                    "rst_probe_smem"}
     for name, types in found.items():
         assert kernels._ARGTYPES[name] == types, name
     assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",
-                                    "rst_probe", "rst_repack")] == [43, 15, 20, 10, 12]
+                                    "rst_probe", "rst_repack", "rst_conv_matmul",
+                                    "rst_probe_smem")] == [43, 15, 20, 10, 12, 15, 9]
