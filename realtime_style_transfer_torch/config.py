@@ -13,7 +13,10 @@ that it never imports the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 DEFAULT_FEATURE_EXTRACTOR = "mobilenet"
 BASE_RESOLUTION = (960, 1920)  # (height, width) of the full-resolution frame
@@ -135,3 +138,26 @@ class ShapeConfig:
             f"rst-{BASE_RESOLUTION[1] // self.resolution_divider}-"
             f"{self.bottleneck_res_y}-{self.bottleneck_num_filters}-{self.num_channels}"
         )
+
+    def to_json(self) -> str:
+        data = dataclasses.asdict(self)
+        data["derived"] = {
+            "channels": list(self.channels),
+            "input_shape": {k: list(v) for k, v in self.input_shape.items()},
+            "output_shape": list(self.output_shape),
+        }
+        return json.dumps(data, indent=4)
+
+    def get_dummy_input_element(self, batch_size: int = 1):
+        """Zero-filled (inputs, ground_truth) dicts of f32 numpy arrays."""
+        element = {
+            name: np.zeros((batch_size,) + shape, dtype=np.float32)
+            for name, shape in self.input_shape.items()
+        }
+        ground_truth = {
+            "content": np.zeros((batch_size,) + self.output_shape, dtype=np.float32),
+            "style": np.zeros(
+                (batch_size, self.num_styles) + self.output_shape, dtype=np.float32
+            ),
+        }
+        return element, ground_truth

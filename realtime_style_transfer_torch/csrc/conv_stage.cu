@@ -34,9 +34,22 @@
 //             one tap.
 //   epilogue  f32: + bias, then contract relu(relu(v)*s + t) | relu | bias;
 //             per-logical-channel sum and sum of squares of the f32 values
-//             (before bf16 rounding) reduced in the block, then atomicAdd
-//             into a [2, c_log] buffer; store bf16 (a transpose stage stores
-//             its four parity column blocks through depth-to-space).
+//             (before bf16 rounding) added to the frame's [2, c_log] buffer;
+//             store bf16 (a transpose stage stores its four parity column
+//             blocks through depth-to-space).
+//   moments   reduced in an order fixed by the grid, never by scheduling, so
+//             a stage repeats its output bit for bit (the TPU kernel sums in
+//             grid order).  A warp adds its tiles into its own shared slot
+//             (the slots reuse the bytes of the MMA tiles, free after the K
+//             loop, so a block's shared memory does not grow); the block adds
+//             the slots in warp order and writes its [2, BN]
+//             partial to the stage's scratch.  Blocks form groups of GROUP
+//             consecutive x indices; the block that takes a group's last
+//             integer ticket adds the group's partials in block order, and
+//             the block that takes the last group ticket adds the group sums
+//             in group order (then the parity classes of a transpose stage in
+//             class order) into the frame's buffer.  Each last block resets
+//             its ticket, so a CUDA graph replays from zero.
 //
 // Two A-operand paths.  Stages with more than 9 taps at stride 1 (the 9x9
 // stem and final) take the window path: a block owns WR output rows x 64
@@ -72,6 +85,7 @@ constexpr int G_BM = 128;         // ... of 16 output pixels each
 constexpr int MAX_CIN = 128;  // widest input that takes a CIN prologue
 constexpr int MAX_PACK_CIN = 32;  // size of the pack fill's subpixel table
 constexpr int MAX_WINDOW_BYTES = 200 * 1024;  // dynamic shared memory cap
+constexpr int GROUP = 32;     // blocks whose moment partials one block adds
 
 enum { EPI_CONTRACT = 0, EPI_RELU = 1, EPI_BIAS = 2 };
 
@@ -107,6 +121,13 @@ struct Params {
   const float* dequant;           // (N,) s_w / 127
   const float* act_inv;           // (Cin,) 127 / s_c
   int quant;
+  // moments: block partials [blocks][2][BN], then group sums
+  // [groups_y][groups_x][2][BN]; tickets [groups_y * groups_x] + 1, all zero
+  // between launches
+  float* partials;
+  int* tickets;
+  int partials_cap;               // floats in partials
+  int tickets_cap;                // ints in tickets
 };
 
 // The A and B operand type of a stage and the row pitch of its shared tiles.
@@ -128,25 +149,33 @@ __device__ __forceinline__ size_t out_offset(const Params& p, int pix, int n) {
   return ((size_t)y * (2 * p.OW) + x) * p.c_log + c;
 }
 
-// Shared-memory state both paths keep besides their tiles; an int8 stage
-// also holds its act_inv row.
+// Shared-memory state both paths keep besides their tiles: the folded CIN
+// affine of the input; an int8 stage also holds its act_inv row.
 template <bool Q> struct QuantRow {};
 template <> struct QuantRow<true> { float inv[MAX_CIN]; };
 
-template <int BN, bool Q = false>
+template <bool Q = false>
 struct BlockState : QuantRow<Q> {
   float a[MAX_CIN], b[MAX_CIN];  // folded CIN affine of the input
   float da[MAX_CIN], db[MAX_CIN];  // dual: second style's affine minus the first's
-  float sum[BN], sq[BN];         // the block's moments per output column
 };
+
+// The warps' moment slots, [sum, sum of squares][warp][column] f32, in the
+// bytes of a kernel's MMA tiles once its K loop is done: zeroed here.
+template <int NW, int BN, int NT>
+__device__ __forceinline__ void zero_slots(const Params& p, float* slots) {
+  if (!p.stats_out) return;
+  for (int i = threadIdx.x; i < 2 * NW * BN; i += NT) slots[i] = 0.f;
+  __syncthreads();
+}
 
 // Fold the producer's CIN moments and the style row into a*x + b (and, dual,
 // the second style's rows into the deltas da, db); load an int8 stage's
-// act_inv row; zero the block's moment sums.  The fold is stage_common.cuh's
+// act_inv row.  The fold is stage_common.cuh's
 // fold_cin written out: calling that helper here changes the machine code of
 // the bf16 instantiations, which this copy leaves as they were.
-template <int BN, int NT, bool Q>
-__device__ __forceinline__ void block_init(const Params& p, BlockState<BN, Q>& st) {
+template <int NT, bool Q>
+__device__ __forceinline__ void block_init(const Params& p, BlockState<Q>& st) {
   if (p.in_affine) {
     for (int c = threadIdx.x; c < p.Cin; c += NT) {
       const float mean = p.in_stats[c] / p.in_count;
@@ -166,7 +195,6 @@ __device__ __forceinline__ void block_init(const Params& p, BlockState<BN, Q>& s
   }
   if constexpr (Q)
     for (int c = threadIdx.x; c < p.Cin; c += NT) st.inv[c] = p.act_inv[c];
-  for (int i = threadIdx.x; i < BN; i += NT) st.sum[i] = st.sq[i] = 0.f;
 }
 
 // One B slice (BN weight rows x BK reduction columns) through registers: the
@@ -206,13 +234,13 @@ struct BSlice {
 };
 
 // Epilogue and store of one tile of 16 rows per warp; adds its moments into
-// the block's.  Tile row r is output pixel pix0 + r, valid for r < rows;
-// fragment (nt, h, e) is row warp*16 + g + 8h, column nt*8 + 2*t4 + e.  An
-// int8 stage's int32 sums are dequantized first: v = f32(acc) * dequant[n].
-template <int BN, bool Q>
+// the warp's slot (one lane a column, so in the order of the calls).  Tile
+// row r is output pixel pix0 + r, valid for r < rows; fragment (nt, h, e) is
+// row warp*16 + g + 8h, column nt*8 + 2*t4 + e.  An int8 stage's int32 sums
+// are dequantized first: v = f32(acc) * dequant[n].
+template <int BN, int NW, bool Q>
 __device__ __forceinline__ void epilogue_tile(const Params& p, const AccT<Q> (&acc)[BN / 8][4],
-                                              int pix0, int rows, int n0,
-                                              BlockState<BN, Q>& st) {
+                                              int pix0, int rows, int n0, float* slots) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const bool pairs = p.transpose ? (p.c_log % 2 == 0) : (p.N % 2 == 0);
@@ -270,29 +298,87 @@ __device__ __forceinline__ void epilogue_tile(const Params& p, const AccT<Q> (&a
           q += __shfl_xor_sync(0xffffffffu, q, o);
         }
         if (g == 0) {
-          atomicAdd(&st.sum[nt * 8 + 2 * t4 + e], s);
-          atomicAdd(&st.sq[nt * 8 + 2 * t4 + e], q);
+          slots[warp * BN + nt * 8 + 2 * t4 + e] += s;
+          slots[(NW + warp) * BN + nt * 8 + 2 * t4 + e] += q;
         }
       }
     }
   }
 }
 
-// The block's moments into the frame's [2, c_log] buffer (the four parity
-// columns of a transpose stage add into one logical channel).
-template <int BN, int NT, bool Q>
-__device__ __forceinline__ void flush_moments(const Params& p, int n0,
-                                              const BlockState<BN, Q>& st) {
+// The block's moments into the frame's [2, c_log] buffer, in an order fixed
+// by the grid (see "moments" at the top): the warp slots in warp order into
+// the block's partial, a group's partials in block order, the group sums in
+// group order, then the four parity columns of a transpose stage in class
+// order into one logical channel.  Integer tickets (exact atomics) pick the
+// block that adds each level; it resets its ticket for the next launch.
+template <int BN, int NT>
+__device__ __forceinline__ void flush_moments(const Params& p, const float* slots) {
   if (!p.stats_out) return;
+  __shared__ int last;
   __syncthreads();
-  for (int i = threadIdx.x; i < BN; i += NT) {
-    const int n = n0 + i;
-    if (n < p.N) {
-      const int lc = n % p.c_log;
-      atomicAdd(p.stats_out + lc, st.sum[i]);
-      atomicAdd(p.stats_out + p.c_log + lc, st.sq[i]);
+  const int nbx = gridDim.x, nby = gridDim.y;
+  const int ngx = (nbx + GROUP - 1) / GROUP, gx = blockIdx.x / GROUP;
+  const int g0 = gx * GROUP, gn = min(GROUP, nbx - g0);
+  float* part = p.partials;  // [nby][nbx][2][BN]
+  float* gsum = p.partials + (size_t)nbx * nby * 2 * BN;  // [nby][ngx][2][BN]
+  {
+    float* mine = part + ((size_t)blockIdx.y * nbx + blockIdx.x) * 2 * BN;
+    for (int i = threadIdx.x; i < BN; i += NT) {
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) {
+        s += slots[w * BN + i];
+        q += slots[(NT / 32 + w) * BN + i];
+      }
+      mine[i] = s;
+      mine[BN + i] = q;
     }
   }
+  __threadfence();
+  __syncthreads();
+  int* gticket = p.tickets + blockIdx.y * ngx + gx;
+  if (threadIdx.x == 0) last = atomicAdd(gticket, 1) == gn - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  {
+    const float* first = part + ((size_t)blockIdx.y * nbx + g0) * 2 * BN;
+    float* out = gsum + ((size_t)blockIdx.y * ngx + gx) * 2 * BN;
+    for (int i = threadIdx.x; i < 2 * BN; i += NT) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int b = 0; b < gn; ++b) s += __ldcg(first + (size_t)b * 2 * BN + i);
+      out[i] = s;
+    }
+  }
+  if (threadIdx.x == 0) *gticket = 0;
+  __threadfence();
+  __syncthreads();
+  int* ticket = p.tickets + nby * ngx;
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == nby * ngx - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int ncls = p.N / p.c_log;
+  for (int lc = threadIdx.x; lc < p.c_log; lc += NT) {
+    float s = 0.f, q = 0.f;
+    for (int cls = 0; cls < ncls; ++cls) {
+      const int n = cls * p.c_log + lc, by = n / BN, i = n - by * BN;
+      const float* col = gsum + (size_t)by * ngx * 2 * BN + i;
+      float cs = 0.f, cq = 0.f;
+#pragma unroll 4
+      for (int g = 0; g < ngx; ++g) {
+        cs += __ldcg(col + (size_t)g * 2 * BN);
+        cq += __ldcg(col + (size_t)g * 2 * BN + BN);
+      }
+      s += cs;
+      q += cq;
+    }
+    p.stats_out[lc] += s;
+    p.stats_out[p.c_log + lc] += q;
+  }
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
 // ---- gather path: A tiles gathered from global memory ----------------------
@@ -300,15 +386,22 @@ __device__ __forceinline__ void flush_moments(const Params& p, int n0,
 template <int BN, bool Q>
 __global__ void __launch_bounds__(G_THREADS) conv_gather_kernel(const Params p) {
   using T = typename Operand<Q>::T;
-  __shared__ __align__(16) T As[G_BM][Operand<Q>::PITCH];
-  __shared__ __align__(16) T Bs[BN][Operand<Q>::PITCH];
-  __shared__ BlockState<BN, Q> st;
+  constexpr int P = Operand<Q>::PITCH;
+  constexpr int NW = G_THREADS / 32;
+  // the A and B tiles; after the K loop the same bytes hold the moment slots
+  constexpr int TILE_BYTES = (G_BM + BN) * P * (int)sizeof(T);
+  static_assert(TILE_BYTES >= 2 * NW * BN * (int)sizeof(float), "moment slots");
+  __shared__ __align__(16) unsigned char mma_tiles[TILE_BYTES];
+  T (*As)[P] = reinterpret_cast<T (*)[P]>(mma_tiles);
+  T (*Bs)[P] = reinterpret_cast<T (*)[P]>(mma_tiles + G_BM * P * sizeof(T));
+  float* slots = reinterpret_cast<float*>(mma_tiles);
+  __shared__ BlockState<Q> st;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int M = p.OH * p.OW;
   const int m0 = blockIdx.x * G_BM, n0 = blockIdx.y * BN;
-  block_init<BN, G_THREADS, Q>(p, st);
+  block_init<G_THREADS, Q>(p, st);
 
   // the two A rows this thread fills: tid/4 and tid/4 + 64
   int a_oy[2], a_ox[2];
@@ -393,8 +486,9 @@ __global__ void __launch_bounds__(G_THREADS) conv_gather_kernel(const Params p) 
     }
     __syncthreads();
   }
-  epilogue_tile<BN, Q>(p, acc, m0, M - m0, n0, st);
-  flush_moments<BN, G_THREADS, Q>(p, n0, st);
+  zero_slots<NW, BN, G_THREADS>(p, slots);
+  epilogue_tile<BN, NW, Q>(p, acc, m0, M - m0, n0, slots);
+  flush_moments<BN, G_THREADS>(p, slots);
 }
 
 // ---- window path: MMA fragments straight from a shared-memory window -------
@@ -423,8 +517,15 @@ template <int BN, bool PACK, bool Q>
 __global__ void __launch_bounds__(NTHREADS) conv_window_kernel(const Params p) {
   constexpr int WR = window_rows(BN);
   using T = typename Operand<Q>::T;
-  __shared__ __align__(16) T Bs[2][BN][Operand<Q>::PITCH];
-  __shared__ BlockState<BN, Q> st;
+  constexpr int P = Operand<Q>::PITCH;
+  constexpr int NW = NTHREADS / 32;
+  // the two B buffers; after the K loop the same bytes hold the moment slots
+  constexpr int TILE_BYTES = 2 * BN * P * (int)sizeof(T);
+  static_assert(TILE_BYTES >= 2 * NW * BN * (int)sizeof(float), "moment slots");
+  __shared__ __align__(16) unsigned char mma_tiles[TILE_BYTES];
+  T (*Bs)[BN][P] = reinterpret_cast<T (*)[BN][P]>(mma_tiles);
+  float* slots = reinterpret_cast<float*>(mma_tiles);
+  __shared__ BlockState<Q> st;
   __shared__ short sub_c[4 * MAX_PACK_CIN];  // pack channel -> (subpixel x, c)
   extern __shared__ __align__(16) unsigned char dyn[];
   T* win = reinterpret_cast<T*>(dyn);  // [wrows][wc][pitch]
@@ -440,7 +541,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_window_kernel(const Params p) {
   const int y0 = oy0 - p.pt, x0 = ox0 - p.pl;  // input pixel of window (0, 0)
   BSlice<BN, NTHREADS, Q> b;
   b.load(p, n0, 0);  // in flight during the window fill
-  block_init<BN, NTHREADS, Q>(p, st);
+  block_init<NTHREADS, Q>(p, st);
   // channels [c_pad0, cin_k) of every window pixel start zero; the fill below
   // writes [0, Cin), zeros outside the image
   const int c_pad0 = (p.Cin / 8) * 8, pad_vecs = (p.cin_k - c_pad0) / 8;
@@ -585,11 +686,23 @@ __global__ void __launch_bounds__(NTHREADS) conv_window_kernel(const Params p) {
     __syncthreads();
     buf ^= 1;
   }
+  zero_slots<NW, BN, NTHREADS>(p, slots);
 #pragma unroll
   for (int rr = 0; rr < WR; ++rr)
-    epilogue_tile<BN, Q>(p, acc[rr], (oy0 + rr) * p.OW + ox0,
-                         oy0 + rr < p.OH ? p.OW - ox0 : 0, n0, st);
-  flush_moments<BN, NTHREADS, Q>(p, n0, st);
+    epilogue_tile<BN, NW, Q>(p, acc[rr], (oy0 + rr) * p.OW + ox0,
+                         oy0 + rr < p.OH ? p.OW - ox0 : 0, n0, slots);
+  flush_moments<BN, NTHREADS>(p, slots);
+}
+
+// Whether the stage's moment scratch holds what flush_moments writes for
+// this grid.
+template <int BN>
+bool scratch_fits(const Params& p, const dim3& grid) {
+  if (!p.stats_out) return true;
+  const long long ngx = (grid.x + GROUP - 1) / GROUP;
+  const long long floats = ((long long)grid.x * grid.y + ngx * grid.y) * 2 * BN;
+  return p.partials && p.tickets && floats <= p.partials_cap &&
+         ngx * grid.y + 1 <= p.tickets_cap;
 }
 
 template <int BN, bool Q>
@@ -598,6 +711,7 @@ cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
   if (!p.window) {
     if (p.pack_c > 0 || p.cin_k != p.Cin) return cudaErrorInvalidValue;
     const dim3 grid((p.OH * p.OW + G_BM - 1) / G_BM, n_blocks_n);
+    if (!scratch_fits<BN>(p, grid)) return cudaErrorInvalidValue;
     conv_gather_kernel<BN, Q><<<grid, G_THREADS, 0, stream>>>(p);
     return cudaGetLastError();
   }
@@ -608,6 +722,7 @@ cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
       (p.pack_c > 0 && p.Cin > MAX_PACK_CIN))
     return cudaErrorInvalidValue;
   const dim3 grid(((p.OH + WR - 1) / WR) * ((p.OW + BM - 1) / BM), n_blocks_n);
+  if (!scratch_fits<BN>(p, grid)) return cudaErrorInvalidValue;
   auto kernel = p.pack_c > 0 ? conv_window_kernel<BN, true, Q> : conv_window_kernel<BN, false, Q>;
   static bool configured[2] = {false, false};
   bool& done = configured[p.pack_c > 0 ? 1 : 0];
@@ -637,7 +752,8 @@ extern "C" int rst_conv_stage(
     void* stats_out, int H, int W, int Cin, int pack_c, int OH, int OW, int N,
     int K_pad, int KH, int KW, int S, int pt, int pl, int c_log, int transpose,
     int epi, int cin_k, int window, int block_n, const void* dequant,
-    const void* act_inv, int quant, void* stream) {
+    const void* act_inv, int quant, void* partials, void* tickets, int partials_cap,
+    int tickets_cap, void* stream) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w = static_cast<const __nv_bfloat16*>(w);
@@ -675,6 +791,10 @@ extern "C" int rst_conv_stage(
   p.dequant = static_cast<const float*>(dequant);
   p.act_inv = static_cast<const float*>(act_inv);
   p.quant = quant;
+  p.partials = static_cast<float*>(partials);
+  p.tickets = static_cast<int*>(tickets);
+  p.partials_cap = partials_cap;
+  p.tickets_cap = tickets_cap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (block_n) {

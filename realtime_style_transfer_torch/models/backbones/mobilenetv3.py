@@ -3,8 +3,10 @@
 Port of ``realtime_style_transfer_tpu/models/backbones/mobilenetv3.py``.
 Inputs are expected in [-1, 1].  Module names are the flax ones
 (``stem_conv``, ``expanded_conv``, ``expanded_conv_<i>``, ``last_conv`` ...),
-so the weight bridge maps them one to one.  Batch norms use eps 1e-3;
-depthwise convs are grouped convs with ``groups = C``.
+so the weight bridge maps them one to one.  Batch norms use eps 1e-3 and
+momentum 0.999; depthwise convs are grouped convs with ``groups = C``.
+``dtype`` is the compute dtype over f32 parameters; ``train=True`` runs the
+batch norms on batch statistics.
 """
 
 from __future__ import annotations
@@ -30,7 +32,19 @@ MOBILENETV3_SMALL_BLOCKS: Tuple[Tuple[int, int, int, bool, str, int], ...] = (
     (5, 576, 96, True, "hswish", 1),
     (5, 576, 96, True, "hswish", 1),
 )
+# residual-add taps of the MobileNet loss tower, under the Keras layer names
+STYLE_TAPS = (
+    "expanded_conv_2/Add",
+    "expanded_conv_4/Add",
+    "expanded_conv_5/Add",
+    "expanded_conv_7/Add",
+)
+CONTENT_TAPS = (
+    "expanded_conv_9/Add",
+    "expanded_conv_10/Add",
+)
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.999
 STEM_FILTERS = 16
 LAST_FILTERS = 576
 
@@ -80,25 +94,25 @@ class InvertedResidual(nn.Module):
         width = cin
         if self.has_expand:
             self.expand = Conv(cin, expansion, 1, bias=False, gen=gen)
-            self.expand_bn = BatchNorm(expansion, BN_EPS)
+            self.expand_bn = BatchNorm(expansion, BN_EPS, BN_MOMENTUM)
             width = expansion
         self.depthwise = Conv(width, width, kernel, stride=stride, groups=width,
                               bias=False, gen=gen)
-        self.depthwise_bn = BatchNorm(width, BN_EPS)
+        self.depthwise_bn = BatchNorm(width, BN_EPS, BN_MOMENTUM)
         self.se = (SqueezeExcite(width, _depth(expansion * 0.25), gen)
                    if use_se else None)
         self.project = Conv(width, out_filters, 1, bias=False, gen=gen)
-        self.project_bn = BatchNorm(out_filters, BN_EPS)
+        self.project_bn = BatchNorm(out_filters, BN_EPS, BN_MOMENTUM)
         self.has_add = stride == 1 and cin == out_filters
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shortcut = x
         if self.has_expand:
-            x = self.act(self.expand_bn(self.expand(x)))
-        x = self.act(self.depthwise_bn(self.depthwise(x)))
+            x = self.act(self.expand_bn(self.expand(x), train))
+        x = self.act(self.depthwise_bn(self.depthwise(x), train))
         if self.se is not None:
             x = self.se(x)
-        x = self.project_bn(self.project(x))
+        x = self.project_bn(self.project(x), train)
         return x + shortcut if self.has_add else x
 
 
@@ -106,13 +120,14 @@ class MobileNetV3Small(nn.Module):
     """Feature extractor; ``forward`` returns (features, taps) where taps holds
     the residual-add outputs named in ``capture`` (``expanded_conv_<i>/Add``)."""
 
-    def __init__(self, capture: Sequence[str] = (), *,
+    def __init__(self, capture: Sequence[str] = (), *, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.capture = tuple(capture)
+        self.dtype = dtype
         self.stem_conv = Conv(3, STEM_FILTERS, 3, stride=2, bias=False, gen=gen)
-        self.stem_bn = BatchNorm(STEM_FILTERS, BN_EPS)
+        self.stem_bn = BatchNorm(STEM_FILTERS, BN_EPS, BN_MOMENTUM)
         cin = STEM_FILTERS
         self.block_names = []
         for i, (k, exp, out, se, act, stride) in enumerate(MOBILENETV3_SMALL_BLOCKS):
@@ -122,16 +137,17 @@ class MobileNetV3Small(nn.Module):
             self.block_names.append(name)
             cin = out
         self.last_conv = Conv(cin, LAST_FILTERS, 1, bias=False, gen=gen)
-        self.last_bn = BatchNorm(LAST_FILTERS, BN_EPS)
+        self.last_bn = BatchNorm(LAST_FILTERS, BN_EPS, BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         taps: Dict[str, torch.Tensor] = {}
-        x = hard_swish(self.stem_bn(self.stem_conv(x.float())))
+        x = hard_swish(self.stem_bn(self.stem_conv(x.to(self.dtype)), train))
         for name in self.block_names:
             block = getattr(self, name)
-            x = block(x)
+            x = block(x, train)
             tap_name = f"{name}/Add"
             if block.has_add and tap_name in self.capture:
                 taps[tap_name] = x
-        x = hard_swish(self.last_bn(self.last_conv(x)))
+        x = hard_swish(self.last_bn(self.last_conv(x), train))
         return x, taps

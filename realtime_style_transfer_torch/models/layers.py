@@ -5,6 +5,9 @@ OIHW ``weight`` and an optional ``bias``; a transpose conv holds an HWIO
 ``weight``; a batch norm holds ``weight``/``bias`` and the buffers
 ``running_mean``/``running_var``.  Initialisers draw from an explicit
 ``torch.Generator`` so that a seed fixes every weight.
+
+Parameters stay f32; a layer computes in the dtype of its input (flax's
+``dtype``/``param_dtype``): a bf16 input casts the weights to bf16.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ class Conv(nn.Module):
             init(self.weight, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight, self.bias, stride=self.stride,
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv2d_same(x, self.weight.to(x.dtype), bias, stride=self.stride,
                            groups=self.groups)
 
 
@@ -79,23 +83,47 @@ class ConvTranspose(nn.Module):
         init(self.weight, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
         if self.stride == 2:
-            return conv_transpose_2x(x, self.weight) + self.bias
-        return conv2d_same(x, self.weight.permute(3, 2, 0, 1), self.bias)
+            return (conv_transpose_2x(x, w) + self.bias).to(x.dtype)
+        return conv2d_same(x, w.permute(3, 2, 0, 1), self.bias.to(x.dtype))
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm on NHWC input, flax's arithmetic order:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """Batch norm on NHWC input with flax's ``nn.BatchNorm`` rules, in its
+    arithmetic order ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    f32, cast back to the input's dtype.
 
-    def __init__(self, c: int, eps: float):
+    ``train=False`` uses the running statistics.  ``train=True`` uses the
+    batch's: mean and ``max(E[x^2] - E[x]^2, 0)`` over (B, H, W) in f32
+    (flax's ``use_fast_variance``), and leaves the updated running
+    statistics, ``m * running + (1 - m) * batch`` with the biased variance,
+    in :attr:`batch_update` without touching the buffers (``F.batch_norm``
+    would update with the unbiased variance).  A rerun of the forward, as
+    ``torch.utils.checkpoint`` does, computes the same update again; the
+    caller commits it once, as flax returns its ``batch_stats``.
+    """
+
+    def __init__(self, c: int, eps: float, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.batch_update = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = torch.mean(xf, dim=(0, 1, 2))
+            var = torch.clamp(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.batch_update = (m * self.running_mean + (1 - m) * mean,
+                                     m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(x.dtype)

@@ -13,6 +13,12 @@ kernel path in :mod:`..ops.fused_transfer`.
   (-> CIN -> ReLU), then a final 9x9 stride-1 expand -> CIN -> sigmoid
 * multi-style: implicit weight ``1 - sum(w)`` is prepended and an AvgPool mip
   pyramid of the weight map (keyed by width) feeds each resolution
+
+``dtype`` is the compute dtype over f32 parameters (flax's ``dtype``);
+``train=True`` runs the batch norms on batch statistics (momentum 0.99);
+``use_pallas`` sends each single-style CIN of 64 channels or more to the CUDA
+kernel of :mod:`..ops.cin`, as the JAX net's ``use_pallas`` sends it to
+``cin_pallas``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ EXPAND_FILTER_SIZES: Tuple[Tuple[int, int, int], ...] = (
 NUM_RESIDUAL_BLOCKS = 5
 STEM_FILTERS = 32
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,12 +136,15 @@ class StyleTransferNet(nn.Module):
     """
 
     def __init__(self, plan: TransferPlan, num_styles: int = 1, *,
-                 cin_epsilon: float = CIN_EPS,
+                 cin_epsilon: float = CIN_EPS, dtype: torch.dtype = torch.float32,
+                 use_pallas: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.plan = plan
         self.num_styles = num_styles
         self.cin_epsilon = cin_epsilon
+        self.dtype = dtype
+        self.use_pallas = use_pallas
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
 
         def conv_init(t, g):
@@ -147,7 +157,7 @@ class StyleTransferNet(nn.Module):
         for bi, (filters, kernel, stride) in enumerate(plan.contract_schedule):
             self.add_module(f"contract_{bi}_conv", Conv(
                 cin, filters, kernel, stride=stride, gen=gen, init=conv_init))
-            self.add_module(f"contract_{bi}_bn", BatchNorm(filters, BN_EPS))
+            self.add_module(f"contract_{bi}_bn", BatchNorm(filters, BN_EPS, BN_MOMENTUM))
             cin = filters
         filters = plan.bottleneck_num_filters
         for ri in range(NUM_RESIDUAL_BLOCKS):
@@ -161,7 +171,10 @@ class StyleTransferNet(nn.Module):
             cin = f
 
     def forward(self, content: torch.Tensor, style_params: torch.Tensor,
-                style_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                style_weights: Optional[torch.Tensor] = None, *, train: bool = False,
+                plain: bool = False) -> torch.Tensor:
+        """``plain`` runs the CIN kernel's plain version where ``use_pallas``
+        would launch it (the oracle on the card)."""
         plan = self.plan
         if style_params.shape[-1] != plan.num_style_parameters:
             raise ValueError(
@@ -174,10 +187,11 @@ class StyleTransferNet(nn.Module):
             weights_full = concat_implicit_weight(style_weights.float())
             mips = style_weight_mips(weights_full, plan.num_mips)
 
-        x = content.float()
+        x = content.to(self.dtype)
         for bi in range(len(plan.contract_schedule)):
             x = torch.relu(getattr(self, f"contract_{bi}_conv")(x))
-            x = torch.relu(getattr(self, f"contract_{bi}_bn")(x))
+            x = torch.relu(getattr(self, f"contract_{bi}_bn")(x, train))
+        cin_kw = dict(epsilon=self.cin_epsilon, use_pallas=self.use_pallas, plain=plain)
 
         # (B, S, P) -> (B, 1, S, P)
         cursor = StyleParamCursor(style_params[:, None, :, :].float())
@@ -190,8 +204,7 @@ class StyleTransferNet(nn.Module):
             fx = x
             for ci in range(2):
                 fx = torch.relu(getattr(self, f"residual_{ri}_conv{ci}")(fx))
-                fx = cin_from_cursor(fx, cursor, block_weights,
-                                     epsilon=self.cin_epsilon)
+                fx = cin_from_cursor(fx, cursor, block_weights, **cin_kw)
                 if ci == 0:
                     fx = torch.relu(fx)
             x = fx if ri == 0 else x + fx
@@ -200,7 +213,7 @@ class StyleTransferNet(nn.Module):
         for ei, (_f, _k, stride) in enumerate(plan.expand_blocks):
             block_weights = pick_mip(x.shape[-2] * stride)
             x = getattr(self, f"expand_{ei}_conv")(x)
-            x = cin_from_cursor(x, cursor, block_weights, epsilon=self.cin_epsilon)
+            x = cin_from_cursor(x, cursor, block_weights, **cin_kw)
             x = torch.sigmoid(x) if ei == num_blocks - 1 else torch.relu(x)
 
         cursor.assert_consumed()

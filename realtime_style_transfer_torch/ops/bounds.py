@@ -10,8 +10,9 @@ row of the kernel table in ``PERF.md``, and of each launch of the divider-1
 frame (bf16 and int8), each repack probe case, each ``conv_matmul`` launch of
 a packed frame and the shared-memory probe's workload; ``chip_smoke.py`` uses
 :func:`conv_stage_work`, :func:`finish_work`, :func:`act_stats_work`,
-:func:`probe_work`, :func:`repack_work`, :func:`conv_matmul_work` and
-:func:`smem_work` for the per-launch bounds of the kernels.
+:func:`probe_work`, :func:`repack_work`, :func:`conv_matmul_work`,
+:func:`smem_work` and :func:`cin_work` for the per-launch bounds of the
+kernels.
 """
 
 from __future__ import annotations
@@ -131,6 +132,20 @@ def conv_matmul_work(hp: int, wp: int, kh: int, kw: int, cin: int, cout: int,
     h, w = hp - kh + 1, wp - kw + 1
     ops = 2.0 * h * w * kh * kw * cin * cout
     return ops, float((hp * wp * cin + h * w * cout + kh * kw * cin * cout) * itemsize)
+
+
+def cin_work(b: int, h: int, w: int, c: int, itemsize: int) -> Dict[str, Tuple[float, float]]:
+    """(f32 operations, bytes) of a CIN of a (B, H, W, C) tensor:
+    ``function``, x read once and the output written once (the least any
+    design moves), and per launch of the port's two-kernel design, ``stats``
+    (x read, the (B, 2, C) moments written) and ``normalize`` (x and the
+    moments read, the output written).  Operations: an add, a square and an
+    add a value for the moments, a multiply and an add for the affine."""
+    n = b * h * w * c
+    moments, rows = 8 * b * c, 2 * 4 * b * c   # (B, 2, C) f32; scale, bias rows
+    return {"function": (5.0 * n, 2.0 * n * itemsize + rows),
+            "stats": (3.0 * n, float(n * itemsize + moments)),
+            "normalize": (2.0 * n, float(2 * n * itemsize + moments + rows))}
 
 
 def conv_matmul_launches(plan: TransferPlan) -> Dict[str, Tuple[int, ...]]:
@@ -293,9 +308,18 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     rows["1e finish"] = bound_ms(fin_ops, fin_bytes, "f32") + (
         f"one launch: {fin_bytes / 1e6:.2f} MB",)
     hb, wb, fb = 120, 240, flagship.bottleneck_num_filters
-    act = hb * wb * fb
-    rows["2"] = bound_ms(4 * act, 2 * 4 * act, "f32") + (
-        f"CIN of one ({hb}, {wb}, {fb}) f32 activation",)
+    ops_f, bytes_f = cin_work(1, hb, wb, fb, 4)["function"]
+    rows["2"] = bound_ms(ops_f, bytes_f, "f32") + (
+        f"CIN of one ({hb}, {wb}, {fb}) f32 activation, one read + one write",)
+    slice_work = cin_work(4, hb, wb, fb, 2)
+    ops_s, bytes_s = slice_work["function"]
+    rows["2 train"] = bound_ms(ops_s, bytes_s, "f32") + (
+        f"CIN of the training step's (4, {hb}, {wb}, {fb}) bf16 activation, one read + "
+        f"one write, {bytes_s / 2e6:.1f} MB each way",)
+    ops_2 = sum(slice_work[k][0] for k in ("stats", "normalize"))
+    bytes_2 = sum(slice_work[k][1] for k in ("stats", "normalize"))
+    rows["2 train, two kernels"] = bound_ms(ops_2, bytes_2, "f32") + (
+        "the same CIN as the stats + normalize launches move it: read + read + write",)
     for label, plan in (("rst-960", flagship), ("rst-1920", divider1)):
         for seam, shape in conv_matmul_launches(plan).items():
             ops_m, bytes_m = conv_matmul_work(*shape)

@@ -1,6 +1,9 @@
-"""Image-space ops: gram matrices, total variation, weight-map mip pyramids.
+"""Image-space ops: gram matrices, total variation, L2 batch losses, mip pyramids.
 
 Port of ``realtime_style_transfer_tpu/ops/image_ops.py`` (NHWC throughout).
+The gram matrix takes f32 products of (possibly bf16) features, as the JAX
+one does with ``Precision.HIGHEST``: an f32 matmul on CUDA stays full f32 as
+long as ``torch.backends.cuda.matmul.allow_tf32`` keeps its default, False.
 """
 
 from __future__ import annotations
@@ -15,6 +18,12 @@ def gram_matrix(features: torch.Tensor) -> torch.Tensor:
     b, h, w, c = features.shape
     f = features.reshape(b, h * w, c).float()
     return torch.einsum("bic,bid->bcd", f, f) / float(h * w)
+
+
+def mean_l2_loss_on_batch(t: torch.Tensor) -> torch.Tensor:
+    """Mean of 0.5 * t^2 over all non-batch axes -> (B,)."""
+    tf = t.float()
+    return torch.mean(0.5 * (tf * tf), dim=tuple(range(1, t.ndim)))
 
 
 def total_variation(images: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,9 @@ is recorded); :func:`replay_graph` counts the replays of such a graph.
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
 load through ``ctypes``.  :data:`SOURCES` lists every CUDA source of the port;
-the wrappers of the packed path's ``conv_matmul`` and of the probes live in
-their own modules (:mod:`.conv_matmul`, :mod:`.probe_int8`,
-:mod:`.probe_repack`, :mod:`.probe_smem`).
+the wrappers of the packed path's ``conv_matmul``, of the training path's
+``cin`` and of the probes live in their own modules (:mod:`.conv_matmul`,
+:mod:`.cin`, :mod:`.probe_int8`, :mod:`.probe_repack`, :mod:`.probe_smem`).
 """
 
 from __future__ import annotations
@@ -59,10 +59,13 @@ from .packed_conv import pack, unpack
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rst_torch_kernels"
 SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu", "probe_repack.cu",
-           "conv_matmul.cu", "probe_smem.cu")
+           "conv_matmul.cu", "probe_smem.cu", "cin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BK = 32          # reduction slice of conv_stage.cu: K is padded to it
+G_BM = 128       # output pixels a gather-path block of conv_stage.cu
+WINDOW_BM = 64   # output columns a window-path block of conv_stage.cu
+MOMENT_GROUP = 32  # conv_stage.cu's GROUP: blocks one block adds the moments of
 Q_CIN_ALIGN = 32  # an int8 window stage pads cin_k to it: one tap a k32 slice
 MAX_CIN = 128    # widest CIN prologue conv_stage.cu holds in shared memory
 EPI = {"contract": 0, "relu": 1, "bias": 2}
@@ -70,13 +73,15 @@ EPI = {"contract": 0, "relu": 1, "bias": 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "rst_conv_stage": ([_P] * 12 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19
-                       + [_P, _P, _I, _P]),
+                       + [_P, _P, _I, _P, _P, _I, _I, _P]),
     "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 4 + [_P],
     "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
     "rst_conv_matmul": [_P] * 6 + [_I] * 8 + [_P],
     "rst_probe_smem": [_I] * 4 + [_P] * 5,
+    "rst_cin_stats": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "rst_cin_normalize": [_P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -228,6 +233,10 @@ class ConvStage:
     quant: bool = False
     dequant: Optional[torch.Tensor] = None  # (n,) f32, int8 only
     act_inv: Optional[torch.Tensor] = None  # (cin,) f32, int8 only
+    # the kernel's moment scratch (:func:`moment_scratch`): static, so a CUDA
+    # graph captures it; the kernel leaves the tickets zero after each launch
+    partials: Optional[torch.Tensor] = None  # f32
+    tickets: Optional[torch.Tensor] = None   # int32, zero
 
     @property
     def k_real(self) -> int:
@@ -255,6 +264,30 @@ class ConvStage:
     @property
     def block_n(self) -> int:
         return min(128, max(8, 1 << (self.n - 1).bit_length()))
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """conv_stage.cu's launch grid: (blocks along the output pixels,
+        blocks along the n columns)."""
+        oh, ow = self.out_hw
+        if self.window:
+            rows = 4 if self.block_n <= 32 else 1  # window_rows()
+            bx = -(-oh // rows) * -(-ow // WINDOW_BM)
+        else:
+            bx = -(-(oh * ow) // G_BM)
+        return bx, -(-self.n // self.block_n)
+
+
+def moment_scratch(st_grid: Tuple[int, int], block_n: int, device):
+    """(partials, tickets) for conv_stage.cu's fixed-order moment reduction
+    on a grid of ``st_grid`` blocks: a [2, block_n] partial a block and one a
+    group of :data:`MOMENT_GROUP` blocks (f32), a ticket a group and one for
+    the stage (int32, zero)."""
+    bx, by = st_grid
+    groups = -(-bx // MOMENT_GROUP) * by
+    partials = torch.empty((bx * by + groups) * 2 * block_n, dtype=torch.float32,
+                           device=device)
+    return partials, torch.zeros(groups + 1, dtype=torch.int32, device=device)
 
 
 def quantize_kernel(kernel: np.ndarray, act_scale) -> Tuple[np.ndarray, np.ndarray,
@@ -316,7 +349,7 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
 
     if (epi == "contract") != (cscale is not None and cshift is not None):
         raise ValueError(f"{name}: contract scale/shift go with epi='contract'")
-    return ConvStage(
+    stage = ConvStage(
         name=name,
         w=torch.tensor(w, device=device).to(torch.int8 if quant else torch.bfloat16),
         kmap=None if kmap is None else torch.tensor(kmap, device=device),
@@ -326,6 +359,8 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
         pad_top=pads[0], pad_left=pads[1], transpose=transpose_cout > 0, epi=epi,
         cin_k=cin_k, window=window, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
     )
+    partials, tickets = moment_scratch(stage.grid, stage.block_n, device)
+    return dataclasses.replace(stage, partials=partials, tickets=tickets)
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +541,10 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
                skip_in: Optional[torch.Tensor] = None,
                skip_out: Optional[torch.Tensor] = None,
                stats_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run one conv stage into ``out``; add its moments into ``stats_out``."""
+    """Run one conv stage into ``out``; add its moments into ``stats_out``
+    (the kernel sums them in an order fixed by its grid, so two calls on the
+    same input give the same bits; the stage's scratch serves one launch at a
+    time, as one stream runs them)."""
     if x.device.type == "cpu":
         return conv_stage_plain(x, st, out, prologue=prologue, skip_in=skip_in,
                                 skip_out=skip_out, stats_out=stats_out)
@@ -536,7 +574,8 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
         st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, oh, ow, st.n,
         st.w.shape[1], st.kh, st.kw, st.stride, st.pad_top, st.pad_left, st.c_log,
         int(st.transpose), EPI[st.epi], st.cin_k, int(st.window), st.block_n,
-        _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _stream(x))
+        _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _ptr(st.partials),
+        _ptr(st.tickets), st.partials.numel(), st.tickets.numel(), _stream(x))
     if err:
         raise RuntimeError(f"conv_stage {st.name}: CUDA error {err} at launch")
     conv_stage.launches += 1

@@ -4,6 +4,8 @@ Port of ``realtime_style_transfer_tpu/ops/normalization.py``: per-(batch,
 channel) spatial moments over (H, W) in f32, with the variance taken as
 ``E[x^2] - E[x]^2`` (not ``torch.var``), then
 ``bias + (x * rsqrt(var + eps) - mean * rsqrt(var + eps)) * scale``.
+With ``use_pallas`` and one style, :func:`cin_from_cursor` takes the CUDA
+kernel of :mod:`.cin` (the TPU package's ``cin_pallas``).
 """
 
 from __future__ import annotations
@@ -50,12 +52,20 @@ def cin_from_cursor(
     style_weights: Optional[torch.Tensor],
     *,
     epsilon: float = CIN_EPS,
+    use_pallas: bool = False,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Slice (scale, bias) for ``x``'s channel count off ``cursor``; apply CIN.
 
-    Slice order: scale first, then bias.
+    Slice order: scale first, then bias.  ``use_pallas`` with one style
+    (``style_weights is None``) takes :func:`.cin.cin`, or with ``plain`` its
+    plain version :func:`.cin.cin_plain`.
     """
     num_features = x.shape[-1]
     scale = apply_style_weights(style_weights, cursor.take(num_features))
     bias = apply_style_weights(style_weights, cursor.take(num_features))
+    if use_pallas and style_weights is None:
+        from .cin import cin, cin_plain
+
+        return (cin_plain if plain else cin)(x, scale, bias, epsilon=epsilon)
     return conditional_instance_norm(x, scale, bias, epsilon=epsilon)

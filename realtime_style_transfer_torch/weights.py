@@ -20,6 +20,13 @@ flax leaf              port leaf                    layout
 
 Both directions raise on a leaf they do not consume; with ``expected``,
 :func:`from_flax` also raises on a port parameter it does not fill.
+
+A JAX ``TrainState`` (``step``, ``params``, ``batch_stats`` and optax's
+RMSprop ``opt_state``) becomes the port's :class:`..models.training.TrainState`
+through :func:`state_from_flax` (its ``nu`` tree takes the parameters'
+layouts), and :func:`state_to_flax` gives the way back, so a step in each
+package can be compared leaf by leaf.  The frozen loss and depth towers load
+through :func:`load_flax`.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ def from_flax(variables, expected: Optional[Union[nn.Module, Mapping]] = None
             t = torch.from_numpy(np.array(value, np.float32))
         else:
             raise ValueError(f"flax leaf {'/'.join(path)} has no port counterpart")
-        key = f"{module}.{name}"
+        key = f"{module}.{name}" if module else name
         if key in out:
             raise ValueError(f"two flax leaves map to {key}")
         out[key] = t
@@ -96,7 +103,7 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     """The port's ``state_dict`` -> nested flax variables of numpy arrays."""
     tree: Dict[str, dict] = {}
     for key, value in state_dict.items():
-        module, leaf = key.rsplit(".", 1)
+        module, _, leaf = key.rpartition(".")
         a = value.detach().cpu().float()
         if leaf == "weight" and a.ndim == 4:
             collection, name = "params", "kernel"
@@ -111,7 +118,7 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         else:
             raise ValueError(f"port leaf {key} has no flax counterpart")
         node = tree.setdefault(collection, {})
-        for part in module.split("."):
+        for part in module.split(".") if module else ():
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(a.numpy())
     return tree
@@ -121,3 +128,32 @@ def load_flax(module: nn.Module, variables) -> nn.Module:
     """Fill ``module`` from flax ``variables``; every leaf must match."""
     module.load_state_dict(from_flax(variables, expected=module), strict=True)
     return module
+
+
+def state_from_flax(jax_state, training_model):
+    """A JAX ``TrainState`` (its arrays as numpy, or anything ``np.asarray``
+    takes) -> the port's ``TrainState`` on ``training_model``'s device."""
+    from .models.training import TrainState
+    from .optim import RMSPropState
+
+    model = training_model.model
+    dev = training_model.device
+    sd = from_flax({"params": jax_state.params, "batch_stats": jax_state.batch_stats},
+                   expected=model)
+    params = {k: sd[k].to(dev) for k, _ in model.named_parameters()}
+    batch_stats = {k: sd[k].to(dev) for k, _ in model.named_buffers()}
+    nu = from_flax({"params": jax_state.opt_state[0].nu})
+    if set(nu) != set(params):
+        raise ValueError("the optimizer's nu tree does not match the parameters")
+    return TrainState(torch.tensor(int(np.asarray(jax_state.step)), dtype=torch.int32),
+                      params, batch_stats, RMSPropState({k: nu[k].to(dev) for k in params}))
+
+
+def state_to_flax(state) -> Dict[str, object]:
+    """The port's ``TrainState`` -> ``{"step", "params", "batch_stats",
+    "nu"}`` as nested flax trees of numpy arrays (``params`` without the
+    ``"params"`` level, as a JAX ``TrainState`` holds them)."""
+    tree = to_flax({**state.params, **state.batch_stats})
+    return {"step": int(state.step), "params": tree["params"],
+            "batch_stats": tree.get("batch_stats", {}),
+            "nu": to_flax(state.opt_state.nu)["params"]}
