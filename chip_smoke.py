@@ -13,23 +13,37 @@ Run from the repository root: ``python3 chip_smoke.py``.
    moment sums within rtol 1e-3 + atol 1e-3 * max|ref| (the two sides share
    their rounding points and differ only in summation order).  Times each
    kernel, its plain version and one library ``F.conv2d`` in bf16 on the same
-   input, with CUDA events.  Then every stage with a CIN prologue and the
-   finish again in dual-style form (seeded second-style rows, a seeded weight
-   plane in [0, 1]), with the same limits, timed beside the single-style time.
+   input, with CUDA events (``ms``, ``library_ms``), and the kernel and
+   ``F.conv2d`` again as the replay of a CUDA graph of 20 launches (device
+   time without the host's launch cost: ``device_ms``,
+   ``library_device_ms``).  Then every stage with a CIN
+   prologue and the finish again in dual-style form (seeded second-style
+   rows, a seeded weight plane in [0, 1]), with the same limits, timed beside
+   the single-style time.
    Then every stage in int8 form (an int8 engine built from a seeded scales
    table), single and, where it takes a prologue, dual: outputs and
    ``skip_out`` within one bf16 ulp of the plain int8 version (expected equal:
    the int32 sums are exact; the count of differing elements is printed),
    moments within rtol 1e-3; ``act_stats`` on the same input against its plain
    version, maxima and clip counts exactly.  Each int8 launch is timed beside
-   the bf16 time of the same stage and its int8 bound.
+   the bf16 time of the same stage and its int8 bound.  Last, the halo path
+   (the stride-1 stages of at most 9 taps) at grids the frame does not give:
+   a residual conv (3x3, 128 -> 128, affine + ReLU prologue, skip in and out,
+   moments) at 73x147 and at 5x11, smaller than one 8x16 tile, an expand
+   (2x2 parity-packed, 32 -> 4 x 16) at 73x147, bf16 and int8, one style and
+   two, and an int8 conv of 8 channels (taps of 8 bytes) at 9x19, with the
+   same limits: the ragged-edge masks and the zeros after the transform.
 3. Drives the main path: seeded full-width weights from the port's own
    initialisers, ``predict_style_params`` on a seeded 480x960 style image,
    ``prepare_style``, then 8 seeded frames through ``video.stylize_video``
    (prefetcher + ``stylize_prepacked``).  Every frame is compared with the
    eager f32 ``StyleTransferNet`` (TF32 off; rtol 0.08, atol 0.03) and with the
    plain bf16 stage composition (rtol 0.05, atol 0.02, median < 5e-3), and the
-   launch counters must show every stage kernel launched for every frame.
+   launch counters must show every stage kernel launched for every frame,
+   each stage on the path of its role (``conv_stage.path_launches``): the
+   residual and expand convs on the halo path, 12 launches a frame (13 at
+   rst-1920), the 9x9 stem and final on the window path, the strided
+   contracts on the gather path.
    The dual path does the same with two seeded style images, the vertical
    ramp weight map of ``bench.py``'s dual mode and 8 more frames; one frame
    with an all-zero map must equal the single-style kernel path with style 0
@@ -142,6 +156,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -185,10 +200,12 @@ def main() -> int:
     from realtime_style_transfer_torch.ops.bounds import (
         PEAK_FLOPS, act_stats_work, bound_ms, cin_work, conv_matmul_launches, conv_matmul_work,
         conv_stage_work, finish_work, probe_work, repack_work, smem_work)
+    from realtime_style_transfer_torch.ops.conv import pack_transpose_kernel
     from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
     from realtime_style_transfer_torch.ops.kernels import (
         Prologue, act_stats, act_stats_plain, conv_stage, conv_stage_plain, finish,
-        finish_plain, unpack_frame)
+        finish_plain, make_conv_stage, unpack_frame)
+    from realtime_style_transfer_torch.timing import graph_ms
     from realtime_style_transfer_torch.video import choose_path, stylize_video
     from realtime_style_transfer_torch.weights import to_flax
 
@@ -261,7 +278,21 @@ def main() -> int:
         if not same:
             failures.append(f"{label} repeat")
 
-    def check_launches(label, per_frame, frames, extra=None):
+    def path_split(engine):
+        """A frame's conv_stage launches by path, from each stage's role: the
+        residual and expand convs take the halo path, the 9x9 stem and final
+        the window path, the strided contracts the gather path."""
+        split = {"gather": 0, "window": 0, "halo": 0}
+        for step in engine.steps:
+            name = step.stage.name
+            split["window" if name in ("stem", "final") else
+                  "halo" if name.startswith(("res", "e")) else "gather"] += 1
+        return split
+
+    def check_launches(label, per_frame, frames, extra=None, engine=None, halo=None):
+        """The launch counts of a run of ``frames`` frames; given ``engine``,
+        also its conv_stage launches by path (``halo``: the halo launches a
+        frame must come to)."""
         launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
                     "act_stats": kernels.act_stats.launches}
         want = dict({"act_stats": 0}, **{k: v * frames for k, v in per_frame.items()})
@@ -270,6 +301,16 @@ def main() -> int:
               f"({frames} frames, {per_frame} per frame)")
         if launches != want:
             failures.append(f"{label} launch counts")
+        if engine is not None:
+            split = path_split(engine)
+            runs = want["conv_stage"] // len(engine.steps)
+            want_paths = {k: v * runs for k, v in split.items()}
+            got_paths = dict(kernels.conv_stage.path_launches)
+            print(f"{label} conv_stage launches by path: {got_paths}, expected {want_paths} "
+                  f"({split} a frame)")
+            if got_paths != want_paths or (halo is not None and split["halo"] != halo):
+                failures.append(f"{label} launches by path")
+            launches = dict(launches, paths=got_paths)
         return launches
 
     def failed(phase: str) -> bool:
@@ -395,9 +436,11 @@ def main() -> int:
         out = torch.empty(st.out_shape, dtype=bf16, device=dev)
         kernel_ms = cuda_ms(lambda: conv_stage(x, st, out, skip_out=skip_scratch,
                                                stats_out=scratch, **kw), 20)
+        device_ms = graph_ms(lambda: conv_stage(x, st, out, skip_out=skip_scratch,
+                                                stats_out=scratch, **kw))
         plain_ms = cuda_ms(lambda: conv_stage_plain(x, st, out, skip_out=skip_scratch,
                                                     stats_out=scratch, **kw), 3)
-        library_ms = None
+        library_ms = library_device_ms = None
         if not dual and not st.quant:
             h, w = st.in_hw
             logical = unpack_frame(x, st.cin) if st.pack_c else x
@@ -408,23 +451,27 @@ def main() -> int:
             xp = xp.contiguous(memory_format=torch.channels_last)
             wt = st.weight_oihw().to(bf16).contiguous(memory_format=torch.channels_last)
             library_ms = cuda_ms(lambda: F.conv2d(xp, wt, stride=st.stride), 20)
+            library_device_ms = graph_ms(lambda: F.conv2d(xp, wt, stride=st.stride))
 
         flops, n_bytes = conv_stage_work(st, skip_in=skip_in is not None,
                                          skip_out=step.skip_out is not None, dual=dual,
                                          weight_bytes=1 if st.quant else 2)
         ops_ms, _ = bound_ms(flops, 0.0, "int8" if st.quant else "bf16")
         bytes_ms, _ = bound_ms(0.0, n_bytes)
-        note(f"{label}{' dual' if dual else ''}: kernel {kernel_ms:.4f} ms, plain "
-             f"{plain_ms:.4f} ms, "
-             + (f"F.conv2d bf16 {library_ms:.4f} ms, " if library_ms is not None else "")
+        note(f"{label}{' dual' if dual else ''} ({st.path} path): kernel {kernel_ms:.4f} ms "
+             f"(graph replay {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+             + (f"F.conv2d bf16 {library_ms:.4f} ms (graph replay {library_device_ms:.4f} ms), "
+                if library_ms is not None else "")
              + f"bound {max(ops_ms, bytes_ms):.4f} ms "
              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e9:.2f} "
              f"{'GOP int8' if st.quant else 'GFLOP'}, {n_bytes / 1e6:.1f} MB)"
              + (f"; act_stats {stats_row['ms']:.4f} ms, plain {stats_row['plain_ms']:.4f} ms, "
                 f"bound {max(stats_row['ops_ms'], stats_row['bytes_ms']):.4f} ms"
                 if stats_row else ""))
-        return dict(err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    ops_ms=ops_ms, bytes_ms=bytes_ms, stats=stats_row, moments_rel=moments_rel)
+        return dict(err=err, ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, library_device_ms=library_device_ms, ops_ms=ops_ms,
+                    bytes_ms=bytes_ms, stats=stats_row,
+                    moments_rel=moments_rel, path=st.path, name=st.name)
 
     def check_finish(label, xf, pro):
         """The finish on the (H, W, 3) ``xf`` against its plain version, timed."""
@@ -489,6 +536,44 @@ def main() -> int:
     if failed("phase 2, int8"):
         return 1
 
+    print("phase 2, halo: the halo path at grids the frame does not give, bf16 and int8",
+          flush=True)
+    hrng = np.random.default_rng(SEED + 3)
+
+    def halo_step(label, hw, cin, cout, transpose, quant):
+        """A seeded halo-path stage at grid ``hw`` as a step of the frame: a
+        residual conv (3x3, ReLU epilogue, affine + ReLU prologue, skip in and
+        out, moments) or an expand (2x2 parity-packed, prologue, moments)."""
+        kernel = (hrng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+        bias = (hrng.standard_normal(cout) * 0.1).astype(np.float32)
+        pads = (1, 1)
+        if transpose:
+            packed, (pad_y, pad_x) = pack_transpose_kernel(torch.from_numpy(kernel))
+            kernel, pads, bias = packed.numpy(), (pad_y[0], pad_x[0]), np.tile(bias, 4)
+        scale = (hrng.random(cin) * 2.5 + 0.5).astype(np.float32) if quant else None
+        st = make_conv_stage(label, kernel, bias, in_hw=hw, out_hw=hw, stride=1, pads=pads,
+                             epi="bias" if transpose else "relu", device=dev,
+                             transpose_cout=cout if transpose else 0, act_scale=scale)
+        if st.path != "halo":
+            failures.append(f"{label}: {st.path} path")
+        skip = None if transpose else 0
+        return SimpleNamespace(stage=st, src=0, in_relu=not transpose, skip_in=skip,
+                               skip_out=skip, slot=0)
+
+    halo_rows = []
+    for quant in (False, True):
+        kind = " int8" if quant else ""
+        for (hh, hw_), cin, cout, tr in (((73, 147), 128, 128, False), ((5, 11), 128, 128, False),
+                                         ((73, 147), 32, 16, True)):
+            label = f"halo {'expand' if tr else 'residual'} {hh}x{hw_}{kind}"
+            step = halo_step(label, (hh, hw_), cin, cout, tr, quant)
+            for dual in (False, True):
+                halo_rows.append(check_stage(None, label, step, dual=dual))
+    halo_rows.append(check_stage(None, "halo residual 9x19 cin 8 int8",
+                                 halo_step("halo cin8", (9, 19), 8, 8, False, True)))
+    if failed("phase 2, halo"):
+        return 1
+
     # ---- phase 3: the main path, single and dual style ------------------------
     print(f"phase 3: {N_FRAMES} frames of {SPEC} through video.stylize_video", flush=True)
     rng = np.random.default_rng(SEED)
@@ -535,7 +620,8 @@ def main() -> int:
     run = stylize_video(model, fused, style_image, frames,
                         lambda i, frame: results.__setitem__(i, frame))
     torch.cuda.synchronize()
-    launches = check_launches("single", per_frame, N_FRAMES + 1)  # + warm-up
+    launches = check_launches("single", per_frame, N_FRAMES + 1, engine=fused,
+                              halo=12)  # + warm-up
     style_params = run["style_params"]
     if tuple(style_params.shape) != (1, 1, 2662) or not torch.isfinite(style_params).all():
         failures.append("style params")
@@ -560,7 +646,7 @@ def main() -> int:
     run2 = stylize_video(model2, fused2, style_images, frames2,
                          lambda i, frame: results2.__setitem__(i, frame), style_weights=ramp)
     torch.cuda.synchronize()
-    launches2 = check_launches("dual", per_frame, N_FRAMES + 1)
+    launches2 = check_launches("dual", per_frame, N_FRAMES + 1, engine=fused2, halo=12)
     style_params2 = run2["style_params"]
     if tuple(style_params2.shape) != (1, 2, 2662) or not torch.isfinite(style_params2).all():
         failures.append("dual style params")
@@ -655,7 +741,7 @@ def main() -> int:
         cal_kernel = engine.calibrate_act_scales(cal_packs, prep)
         torch.cuda.synchronize()
         check_launches(f"{label} calibrate", {"conv_stage": n_st, "act_stats": n_st},
-                       len(cal_packs), {"finish": 0})
+                       len(cal_packs), {"finish": 0}, engine=engine)
         cal_plain = engine.calibrate_act_scales(cal_packs, prep, plain=True)
         # each side takes its maxima over its own stage chain, and the two chains'
         # activations differ as their frames do (conv and moment summation
@@ -719,7 +805,8 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = check_launches(label, {"conv_stage": n_st, "finish": 1}, len(frs) + 1,
                                 {"conv_stage": n_st * (len(frs) + 1 + N_CAL),
-                                 "act_stats": n_st * N_CAL})
+                                 "act_stats": n_st * N_CAL}, engine=bf16_engine,
+                                halo=13 if bf16_engine.three_seg else 12)
         engine = run_q["engine"]
         prep_q = engine.prepare_style(sp, weights_t)
         errs = check_int8_frames(label, bf16_engine, engine, res, frs, prep, prep_q)
@@ -733,7 +820,7 @@ def main() -> int:
         match = engine.check_act_saturation(cal_packs, prep, scales_q)
         torch.cuda.synchronize()
         check_launches(f"{label} check", {"conv_stage": n_st, "act_stats": n_st},
-                       len(cal_packs), {"finish": 0})
+                       len(cal_packs), {"finish": 0}, engine=engine)
         strong = engine.check_act_saturation(cal_packs, engine.prepare_style(sp * 3), scales_q)
         sat = {}
         for name, report in (("matching style", match), ("style params x 3", strong)):
@@ -947,7 +1034,8 @@ def main() -> int:
     run1 = stylize_video(model1, fused1, style_image1, frames1,
                          lambda i, frame: results1.__setitem__(i, frame))
     torch.cuda.synchronize()
-    launches1 = check_launches("rst1920", per_frame1, N_FRAMES + 1)  # + warm-up
+    launches1 = check_launches("rst1920", per_frame1, N_FRAMES + 1, engine=fused1,
+                               halo=13)  # + warm-up
     style_params1 = run1["style_params"]
     if tuple(style_params1.shape) != (1, 1, 2678) or not torch.isfinite(style_params1).all():
         failures.append("rst1920 style params")
@@ -1686,14 +1774,49 @@ def main() -> int:
                 "tops": q["tops"], "bf16_launches": b["launches"], "bf16_max_abs_err": b["err"],
                 "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_bound_ms": b["bound"],
                 "bf16_tops": b["tops"], "int8_bf16_ratio": probe[(arm, "ratio")]}
+    def halo_entry():
+        """The halo path's launches of one rst960 frame (res0a, res0b..res4b,
+        e0, e1), summed, bf16 single style; dual, int8 and rst1920 beside."""
+        idx = [i for i, r in enumerate(rows) if r["path"] == "halo"]
+        idx1 = [i for i, r in enumerate(rows1) if r["path"] == "halo"]
+        pick = [rows[i] for i in idx]
+        return {"name": "conv_stage_halo", "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
+                "replaces": f"{TPU_KERNEL}:1190", "also_replaces": f"{TPU_KERNEL}:1024",
+                "launches": launches["paths"]["halo"],
+                "max_abs_err": max(r["err"] for r in pick),
+                "ms": sum(r["ms"] for r in pick), "plain_ms": sum(r["plain_ms"] for r in pick),
+                "bound_ms": bound_sum(pick), "bound_by": bound_by(pick),
+                "library_ms": sum(r["library_ms"] for r in pick),
+                "device_ms": sum(r["device_ms"] for r in pick),
+                "library_device_ms": sum(r["library_device_ms"] for r in pick),
+                "per": "one rst960 frame's halo launches, summed (ms, library_ms: a wrapper "
+                       "call timed with CUDA events; device_ms: a CUDA graph's replay)",
+                "stage_ms": {r["name"]: r["ms"] for r in pick},
+                "stage_device_ms": {r["name"]: r["device_ms"] for r in pick},
+                "stage_library_ms": {r["name"]: r["library_ms"] for r in pick},
+                "stage_library_device_ms": {r["name"]: r["library_device_ms"] for r in pick},
+                "dual_launches": launches2["paths"]["halo"],
+                "dual_ms": sum(dual_rows.get(i, rows[i])["ms"] for i in idx),
+                "int8_launches": int8_runs["int8"]["launches"]["paths"]["halo"],
+                "int8_max_abs_err": max(int8_rows[i]["err"] for i in idx),
+                "int8_ms": sum(int8_rows[i]["ms"] for i in idx),
+                "rst1920_launches": launches1["paths"]["halo"],
+                "rst1920_ms": sum(rows1[i]["ms"] for i in idx1),
+                "rst1920_library_ms": sum(rows1[i]["library_ms"] for i in idx1),
+                "rst1920_int8_ms": sum(int8_rows1[i]["ms"] for i in idx1),
+                "odd_grids_max_abs_err": max(r["err"] for r in halo_rows)}
+
     table = {"kernels": [
         dict({"name": "conv_stage", "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
               "replaces": f"{TPU_KERNEL}:936", "launches": launches["conv_stage"],
+              "path_launches": launches["paths"],
               "max_abs_err": max([r["err"] for r in rows] + [extra["err"]]),
               "ms": sum(r["ms"] for r in rows),
               "plain_ms": sum(r["plain_ms"] for r in rows),
               "bound_ms": bound_sum(rows), "bound_by": bound_by(rows),
               "library_ms": sum(r["library_ms"] for r in rows),
+              "device_ms": sum(r["device_ms"] for r in rows),
+              "library_device_ms": sum(r["library_device_ms"] for r in rows),
               "dual_launches": launches2["conv_stage"],
               "dual_max_abs_err": max([r["err"] for r in dual_rows.values()]
                                       + [dual_extra["err"]]),
@@ -1723,6 +1846,7 @@ def main() -> int:
               "rst1920_int8_frame_ms": int8_frame1_ms,
               "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"]},
              **rst1920(rows1), **rst1920(int8_rows1, "rst1920_int8_")),
+        halo_entry(),
         {"name": "finish", "route": "cuda", "source": f"{SOURCES}/finish.cu",
          "replaces": f"{TPU_KERNEL}:1601", "launches": launches["finish"],
          "max_abs_err": fin["err"], "ms": fin["ms"], "plain_ms": fin["plain_ms"],

@@ -241,14 +241,20 @@ def frame_work(plan: TransferPlan, *, weight_bytes: int = 2,
                                            + weight_bytes * n_weights / frames)
 
 
+def cpu_engine(plan: TransferPlan, **kw) -> FusedTransfer:
+    """``FusedTransfer`` of ``plan`` on the CPU with seeded weights (all
+    non-zero), e.g. to read its stages' geometry and launch shapes."""
+    torch.manual_seed(0)
+    return FusedTransfer(to_flax(StyleTransferNet(plan).state_dict()), plan, device="cpu", **kw)
+
+
 def plan_stage_work(spec: str, *, weight_bytes: int = 2) -> Dict[str, Tuple[float, float]]:
     """(operations, bytes) of each ``conv_stage`` launch of one frame of
     ``spec`` and of its ``finish``, single style, from the stages that
     ``FusedTransfer`` builds on the CPU with seeded weights (all non-zero but
     for the layout's padding); ``weight_bytes=1`` counts int8 weights."""
     plan = plan_from_config(ShapeConfig.from_spec(spec))
-    torch.manual_seed(0)
-    engine = FusedTransfer(to_flax(StyleTransferNet(plan).state_dict()), plan, device="cpu")
+    engine = cpu_engine(plan)
     work = {step.stage.name: conv_stage_work(
         step.stage, skip_in=step.skip_in is not None, skip_out=step.skip_out is not None,
         weight_bytes=weight_bytes) for step in engine.steps}

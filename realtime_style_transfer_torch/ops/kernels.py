@@ -15,12 +15,16 @@ GPU cannot wait for each other inside a launch.
 
 Bounds on the H100, from the flagship's shapes: the conv stages are bound by
 operations (about 127 GFLOP against 0.35 GB a frame), so the kernel keeps
-every conv on the tensor cores (``mma.sync``) and fuses the CIN prologue, the
+every conv on the tensor cores (``mma.sync``, ``wgmma`` on the halo path) and
+fuses the CIN prologue, the
 epilogue and the moments into the conv, so no activation makes an extra trip
-through device memory.  What the kernel meets first is L2 traffic, because
-every block reads the whole weight matrix: the 9x9 stages read their MMA
-operands from a shared-memory input window four output rows tall, the others
-gather A tiles in blocks of 128 pixels (``PERF.md`` has the measurements).
+through device memory.  Each stage takes one of three A-operand paths,
+chosen from its geometry alone (:func:`stage_path`): the 9x9 stages read
+their MMA operands from a shared-memory input window four output rows tall
+(``window``), the stride-1 stages of at most 9 taps from the input halo of an
+8x16 output tile in shared memory, with the weights streaming through a ring
+of slices by TMA copies (``halo``), the stride-2 stages gather A tiles in
+blocks of 128 pixels (``gather``); ``PERF.md`` has the measurements.
 ``finish`` and ``act_stats`` are one elementwise pass each, bound by bytes.
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to the
@@ -28,7 +32,8 @@ plain PyTorch version (same signature, same rounding points: bf16 storage,
 f32 affine, f32 moments taken before rounding; int8 sums exact in float64), a
 CUDA tensor launches the kernel or raises.  Each wrapper's ``launches`` counts
 kernel launches only (a launch recorded into a CUDA graph counts once, when it
-is recorded); :func:`replay_graph` counts the replays of such a graph.
+is recorded; ``conv_stage.path_launches`` splits its count by path);
+:func:`replay_graph` counts the replays of such a graph.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
@@ -65,6 +70,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BK = 32          # reduction slice of conv_stage.cu: K is padded to it
 G_BM = 128       # output pixels a gather-path block of conv_stage.cu
 WINDOW_BM = 64   # output columns a window-path block of conv_stage.cu
+HALO_TH = 8      # output rows of a halo-path block of conv_stage.cu
+HALO_TW = 16     # output columns of a halo-path block
+RING = 3         # weight slices a halo-path block keeps in shared memory ...
+SLICE_BYTES = 128  # ... each this many bytes of K for every column of the block
+MAX_HALO_BYTES = 200 * 1024  # conv_stage.cu's cap on a halo block's dynamic shared memory
+PATHS = {"gather": 0, "window": 1, "halo": 2}  # conv_stage.cu's PATH_* codes
 MOMENT_GROUP = 32  # conv_stage.cu's GROUP: blocks one block adds the moments of
 Q_CIN_ALIGN = 32  # an int8 window stage pads cin_k to it: one tap a k32 slice
 MAX_CIN = 128    # widest CIN prologue conv_stage.cu holds in shared memory
@@ -197,11 +208,14 @@ class ConvStage:
     pad_left + tx)`` for output grid pixel (oy, ox) and tap (ty, tx); taps
     outside the image read zero.  A ``transpose`` stage is the parity-packed
     dense conv of :func:`..conv.pack_transpose_kernel`: its ``n = 4 * c_log``
-    columns are parity classes, stored through depth-to-space.  A ``window``
-    stage (stride 1, more than 9 taps) reads its MMA fragments from a
-    shared-memory input window, with channels padded to ``cin_k``, a multiple
-    of 16 (of 32 for an int8 stage); the other stages gather A tiles through
-    ``kmap``.
+    columns are parity classes, stored through depth-to-space.  ``path`` is
+    the kernel's A-operand path (:func:`stage_path`): a ``window`` stage reads
+    its MMA fragments from a shared-memory input window, with channels padded
+    to ``cin_k``, a multiple of 16 (of 32 for an int8 stage); a ``halo`` stage
+    from the input halo of its output tile, with its weights in ``wslices``;
+    a ``gather`` stage gathers A tiles through ``kmap``.  Halo and gather
+    stages keep ``cin_k = cin`` and hold ``kmap`` (a halo stage's K order is
+    the same; its kernel does not read the map).
 
     An int8 (``quant``) stage holds int8 weights with the activation scales
     folded in, ``dequant = s_w / 127`` per output column and ``act_inv =
@@ -210,8 +224,8 @@ class ConvStage:
 
     name: str
     w: torch.Tensor          # (n, k_pad) bf16 (int8 if quant), k = (ty * kw + tx) * cin_k + c
-    kmap: Optional[torch.Tensor]  # gather path: (k_pad,) int32, (ty << 20) |
-                             # (tx << 10) | c, -1 for padding
+    kmap: Optional[torch.Tensor]  # halo and gather stages: (k_pad,) int32,
+                             # (ty << 20) | (tx << 10) | c, -1 for padding
     bias: torch.Tensor       # (n,) f32
     cscale: Optional[torch.Tensor]  # (n,) f32, epi == 'contract'
     cshift: Optional[torch.Tensor]
@@ -229,14 +243,20 @@ class ConvStage:
     transpose: bool
     epi: str
     cin_k: int               # channel stride of the K index
-    window: bool
+    path: str                # "window", "halo" or "gather"
     quant: bool = False
     dequant: Optional[torch.Tensor] = None  # (n,) f32, int8 only
     act_inv: Optional[torch.Tensor] = None  # (cin,) f32, int8 only
+    # halo path: ``w`` as the kernel streams it (:func:`halo_slices`)
+    wslices: Optional[torch.Tensor] = None  # uint8
     # the kernel's moment scratch (:func:`moment_scratch`): static, so a CUDA
     # graph captures it; the kernel leaves the tickets zero after each launch
     partials: Optional[torch.Tensor] = None  # f32
     tickets: Optional[torch.Tensor] = None   # int32, zero
+
+    @property
+    def window(self) -> bool:
+        return self.path == "window"
 
     @property
     def k_real(self) -> int:
@@ -270,12 +290,64 @@ class ConvStage:
         """conv_stage.cu's launch grid: (blocks along the output pixels,
         blocks along the n columns)."""
         oh, ow = self.out_hw
-        if self.window:
+        if self.path == "window":
             rows = 4 if self.block_n <= 32 else 1  # window_rows()
             bx = -(-oh // rows) * -(-ow // WINDOW_BM)
+        elif self.path == "halo":
+            bx = -(-oh // HALO_TH) * -(-ow // HALO_TW)
         else:
             bx = -(-(oh * ow) // G_BM)
         return bx, -(-self.n // self.block_n)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a halo-path block (:func:`halo_smem_bytes`)."""
+        return halo_smem_bytes(self.kh, self.kw, self.cin_k, self.block_n, self.quant)
+
+
+def stage_path(stride: int, kh: int, kw: int) -> str:
+    """conv_stage.cu's A-operand path for a stage's geometry: ``window`` at
+    stride 1 with more than 9 taps, ``halo`` at stride 1 with at most 9,
+    ``gather`` otherwise."""
+    if stride != 1:
+        return "gather"
+    return "window" if kh * kw > 9 else "halo"
+
+
+def halo_pitch(cin_k: int, esize: int) -> int:
+    """Bytes of a halo pixel in shared memory: ``cin_k`` operands of
+    ``esize`` bytes rounded up to an odd number of 16-byte units."""
+    return 16 * (-(-cin_k * esize // 16) | 1)
+
+
+def halo_smem_bytes(kh: int, kw: int, cin_k: int, block_n: int, quant: bool) -> int:
+    """conv_stage.cu's dynamic shared memory of a halo-path block: the halo
+    tile, (HALO_TH + kh - 1) x (HALO_TW + kw - 1) pixels, padded to 128
+    bytes, then the weight ring, RING slices of ``block_n`` rows of
+    SLICE_BYTES, or, int8, the raw bf16 halo if that is larger; or the
+    epilogue's f32 tile, partials and slots if those are larger."""
+    pixels = (HALO_TH + kh - 1) * (HALO_TW + kw - 1)
+    esize = 1 if quant else 2
+    tile = -(-pixels * halo_pitch(cin_k, esize) // 128) * 128
+    ring = RING * block_n * SLICE_BYTES
+    # f32: the tile [pixel][block_n + 4], the partials of 256 threads x 4
+    # columns, sums and squares, and the slots of 8 warps
+    epilogue = 4 * (HALO_TH * HALO_TW * (block_n + 4) + 2 * 4 * 256 + 2 * 8 * block_n)
+    return max(tile + (max(ring, pixels * cin_k * 2) if quant else ring), epilogue)
+
+
+def halo_slices(w: torch.Tensor, block_n: int) -> torch.Tensor:
+    """(n, k_pad) stage weights -> the halo path's weight slices, each one TMA
+    copy: for each block of ``block_n`` columns (zero rows past n) and each
+    SLICE_BYTES of a weight row (zero past its end), block_n x SLICE_BYTES
+    bytes in wgmma's core-matrix order [n // 8][K byte // 16][n % 8][16]."""
+    n = w.shape[0]
+    raw = w.contiguous().view(torch.uint8).reshape(n, -1)
+    nb, nk = -(-n // block_n), -(-raw.shape[1] // SLICE_BYTES)
+    full = raw.new_zeros(nb * block_n, nk * SLICE_BYTES)
+    full[:n, :raw.shape[1]] = raw
+    t = full.reshape(nb, block_n // 8, 8, nk, SLICE_BYTES // 16, 16)
+    return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
 def moment_scratch(st_grid: Tuple[int, int], block_n: int, device):
@@ -311,17 +383,19 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
                     cscale=None, cshift=None, act_scale=None) -> ConvStage:
     """Lay out an HWIO ``kernel`` (f32 numpy) as a stage's operands.
 
-    Stride-1 stages with more than 9 taps take the window path; the others
-    gather, which needs ``cin % 8 == 0`` and an NHWC input.  Given the
-    ``(cin,)`` activation scales of its input, ``act_scale``, the stage is
-    int8 (:func:`quantize_kernel`).
+    The stage's path follows from its geometry (:func:`stage_path`).  The
+    halo and gather paths need an NHWC input with ``cin % 8 == 0``; a halo
+    block must fit its shared memory.  Given the ``(cin,)`` activation scales
+    of its input, ``act_scale``, the stage is int8 (:func:`quantize_kernel`);
+    an int8 stage holds its ``act_inv`` row for at most MAX_CIN channels.  A
+    geometry that no path takes raises ValueError.
     """
     kh, kw, cin, n = kernel.shape
     if epi not in EPI:
         raise ValueError(f"unknown epilogue {epi!r}")
-    window = stride == 1 and kh * kw > 9
-    if not window and (pack_c or cin % 8):
-        raise ValueError(f"{name}: the gather path needs an NHWC input with "
+    path = stage_path(stride, kh, kw)
+    if path != "window" and (pack_c or cin % 8):
+        raise ValueError(f"{name}: the {path} path needs an NHWC input with "
                          f"cin % 8 == 0, got cin={cin}, pack_c={pack_c}")
     quant = act_scale is not None
     dequant = act_inv = None
@@ -329,9 +403,12 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
         if np.shape(act_scale) != (cin,):
             raise ValueError(f"{name}: act_scale must be per-input-channel ({cin},), "
                              f"got {np.shape(act_scale)}")
+        if cin > MAX_CIN:
+            raise ValueError(f"{name}: an int8 stage takes <= {MAX_CIN} input channels, "
+                             f"got {cin}")
         kernel, dequant, act_inv = quantize_kernel(kernel, act_scale)
     align = Q_CIN_ALIGN if quant else 16
-    cin_k = -(-cin // align) * align if window else cin
+    cin_k = -(-cin // align) * align if path == "window" else cin
     k_real = kh * kw * cin_k
     k_pad = -(-k_real // BK) * BK
     padded = np.zeros((kh, kw, cin_k, n), np.float32)
@@ -339,7 +416,7 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
     w = np.zeros((n, k_pad), np.float32)
     w[:, :k_real] = padded.reshape(k_real, n).T
     kmap = None
-    if not window:
+    if path != "window":
         kk = np.arange(k_real)
         kmap = np.full(k_pad, -1, np.int32)
         kmap[:k_real] = ((kk // (kw * cin)) << 20) | (((kk // cin) % kw) << 10) | (kk % cin)
@@ -357,10 +434,15 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
         in_hw=tuple(in_hw), cin=cin, pack_c=pack_c, out_hw=tuple(out_hw),
         n=n, c_log=transpose_cout or n, kh=kh, kw=kw, stride=stride,
         pad_top=pads[0], pad_left=pads[1], transpose=transpose_cout > 0, epi=epi,
-        cin_k=cin_k, window=window, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
+        cin_k=cin_k, path=path, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
     )
+    if path == "halo" and stage.smem_bytes > MAX_HALO_BYTES:
+        raise ValueError(f"{name}: a {kh}x{kw} halo tile of {cin} channels needs "
+                         f"{stage.smem_bytes} bytes of shared memory, over the halo "
+                         f"path's {MAX_HALO_BYTES}")
     partials, tickets = moment_scratch(stage.grid, stage.block_n, device)
-    return dataclasses.replace(stage, partials=partials, tickets=tickets)
+    wslices = halo_slices(stage.w, stage.block_n) if path == "halo" else None
+    return dataclasses.replace(stage, partials=partials, tickets=tickets, wslices=wslices)
 
 
 # ---------------------------------------------------------------------------
@@ -536,6 +618,32 @@ def _prologue_args(pro: Optional[Prologue]):
                                    pro.bias1, pro.weight))
 
 
+def launch_conv_stage(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage, out: torch.Tensor,
+                      path: str, kmap: torch.Tensor, *, prologue: Optional[Prologue] = None,
+                      skip_in: Optional[torch.Tensor] = None,
+                      skip_out: Optional[torch.Tensor] = None,
+                      stats_out: Optional[torch.Tensor] = None) -> None:
+    """``rst_conv_stage`` of ``lib`` on stage ``st`` by ``path``, unchecked
+    and uncounted (``conv_stage`` checks its tensors first; ``halo_profile``
+    gives it another build of the source, another path and a counter buffer
+    as ``kmap``)."""
+    oh, ow = st.out_hw
+    err = lib.rst_conv_stage(
+        _ptr(x), _ptr(st.wslices if path == "halo" else st.w), _ptr(kmap),
+        _ptr(st.bias), _ptr(st.cscale), _ptr(st.cshift), *_prologue_args(prologue),
+        float(prologue.count) if prologue else 1.0,
+        float(prologue.eps) if prologue else 0.0,
+        int(prologue is not None), int(bool(prologue and prologue.relu)),
+        _ptr(skip_in), _ptr(skip_out), _ptr(out), _ptr(stats_out),
+        st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, oh, ow, st.n,
+        st.w.shape[1], st.kh, st.kw, st.stride, st.pad_top, st.pad_left, st.c_log,
+        int(st.transpose), EPI[st.epi], st.cin_k, PATHS[path], st.block_n,
+        _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _ptr(st.partials),
+        _ptr(st.tickets), st.partials.numel(), st.tickets.numel(), _stream(x))
+    if err:
+        raise RuntimeError(f"conv_stage {st.name}: CUDA error {err} at launch")
+
+
 def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
                prologue: Optional[Prologue] = None,
                skip_in: Optional[torch.Tensor] = None,
@@ -554,7 +662,7 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     bf16, f32 = torch.bfloat16, torch.float32
     _check_stage_inputs(x, st, prologue, skip_in)
     _check(out, f"{st.name} output", bf16, st.out_shape, dev)
-    if skip_out is not None and st.window:
+    if skip_out is not None and st.path == "window":
         raise ValueError(f"{st.name}: the window path writes no skip_out")
     if skip_out is not None:
         _check(skip_out, f"{st.name} skip_out", bf16, st.in_shape, dev)
@@ -563,26 +671,15 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
         raise ValueError(f"{st.name}: skip_out needs a stride-1 centred conv")
     if stats_out is not None:
         _check(stats_out, f"{st.name} stats_out", f32, (2, st.c_log), dev)
-    oh, ow = st.out_hw
-    err = _lib("conv_stage.cu").rst_conv_stage(
-        _ptr(x), _ptr(st.w), _ptr(st.kmap), _ptr(st.bias), _ptr(st.cscale),
-        _ptr(st.cshift), *_prologue_args(prologue),
-        float(prologue.count) if prologue else 1.0,
-        float(prologue.eps) if prologue else 0.0,
-        int(prologue is not None), int(bool(prologue and prologue.relu)),
-        _ptr(skip_in), _ptr(skip_out), _ptr(out), _ptr(stats_out),
-        st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, oh, ow, st.n,
-        st.w.shape[1], st.kh, st.kw, st.stride, st.pad_top, st.pad_left, st.c_log,
-        int(st.transpose), EPI[st.epi], st.cin_k, int(st.window), st.block_n,
-        _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _ptr(st.partials),
-        _ptr(st.tickets), st.partials.numel(), st.tickets.numel(), _stream(x))
-    if err:
-        raise RuntimeError(f"conv_stage {st.name}: CUDA error {err} at launch")
+    launch_conv_stage(_lib("conv_stage.cu"), x, st, out, st.path, st.kmap, prologue=prologue,
+                      skip_in=skip_in, skip_out=skip_out, stats_out=stats_out)
     conv_stage.launches += 1
+    conv_stage.path_launches[st.path] += 1
     return out
 
 
 conv_stage.launches = 0
+conv_stage.path_launches = dict.fromkeys(PATHS, 0)  # the launches by A-operand path
 
 
 def act_stats(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
@@ -657,6 +754,7 @@ replay_graph.replays = 0
 
 def reset_launch_counts() -> None:
     conv_stage.launches = 0
+    conv_stage.path_launches = dict.fromkeys(PATHS, 0)
     finish.launches = 0
     act_stats.launches = 0
     replay_graph.replays = 0
