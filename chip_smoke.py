@@ -26,13 +26,18 @@ Run from the repository root: ``python3 chip_smoke.py``.
    the int32 sums are exact; the count of differing elements is printed),
    moments within rtol 1e-3; ``act_stats`` on the same input against its plain
    version, maxima and clip counts exactly.  Each int8 launch is timed beside
-   the bf16 time of the same stage and its int8 bound.  Last, the halo path
-   (the stride-1 stages of at most 9 taps) at grids the frame does not give:
-   a residual conv (3x3, 128 -> 128, affine + ReLU prologue, skip in and out,
-   moments) at 73x147 and at 5x11, smaller than one 8x16 tile, an expand
-   (2x2 parity-packed, 32 -> 4 x 16) at 73x147, bf16 and int8, one style and
-   two, and an int8 conv of 8 channels (taps of 8 bytes) at 9x19, with the
-   same limits: the ragged-edge masks and the zeros after the transform.
+   the bf16 time of the same stage and its int8 bound.  Last, each path at
+   grids the frame does not give, bf16 and int8, one style and two, with the
+   same limits: the ragged-edge masks and the zeros after the transform.  The
+   halo path (the stride-1 stages of at most 9 taps): a residual conv (3x3,
+   128 -> 128, affine + ReLU prologue, skip in and out, moments) at 73x147
+   and at 5x11, smaller than one 8x16 tile, an expand (2x2 parity-packed, 32
+   -> 4 x 16) at 73x147, and an int8 conv of 8 channels (taps of 8 bytes) at
+   9x19.  The strided path (stride 2): c1's 3x3 32 -> 16 and c2's 16 -> 32,
+   affine + ReLU prologue and moments, on inputs of 73x147 (odd height and
+   width) and 5x11.  The window path (9x9): the final conv's 16 -> 3 with
+   its prologue and moments at 73x147 and 5x11, and the stem's 17 -> 32 from
+   an f4 pack at 12x28.
 3. Drives the main path: seeded full-width weights from the port's own
    initialisers, ``predict_style_params`` on a seeded 480x960 style image,
    ``prepare_style``, then 8 seeded frames through ``video.stylize_video``
@@ -42,8 +47,8 @@ Run from the repository root: ``python3 chip_smoke.py``.
    launch counters must show every stage kernel launched for every frame,
    each stage on the path of its role (``conv_stage.path_launches``): the
    residual and expand convs on the halo path, 12 launches a frame (13 at
-   rst-1920), the 9x9 stem and final on the window path, the strided
-   contracts on the gather path.
+   rst-1920), the 9x9 stem and final on the window path, 2 a frame, the
+   stride-2 contracts on the strided path, 2 a frame (3 at rst-1920).
    The dual path does the same with two seeded style images, the vertical
    ramp weight map of ``bench.py``'s dual mode and 8 more frames; one frame
    with an all-zero map must equal the single-style kernel path with style 0
@@ -166,6 +171,9 @@ N_FRAMES = 8
 N_CAL = 4
 SEED = 0
 TPU_KERNEL = "realtime_style_transfer_tpu/ops/pallas/fused_transfer.py"
+# conv_stage launches a frame by path (conv_stage.path_launches)
+PATHS_960 = {"strided": 2, "window": 2, "halo": 12}
+PATHS_1920 = {"strided": 3, "window": 2, "halo": 13}
 SOURCES = "realtime_style_transfer_torch/csrc"
 PROBE = "tools/probe_int8_mxu.py"
 REPACK_PROBE = "tools/probe_repack_ops.py"
@@ -281,18 +289,18 @@ def main() -> int:
     def path_split(engine):
         """A frame's conv_stage launches by path, from each stage's role: the
         residual and expand convs take the halo path, the 9x9 stem and final
-        the window path, the strided contracts the gather path."""
-        split = {"gather": 0, "window": 0, "halo": 0}
+        the window path, the stride-2 contracts the strided path."""
+        split = {"strided": 0, "window": 0, "halo": 0}
         for step in engine.steps:
             name = step.stage.name
             split["window" if name in ("stem", "final") else
-                  "halo" if name.startswith(("res", "e")) else "gather"] += 1
+                  "halo" if name.startswith(("res", "e")) else "strided"] += 1
         return split
 
-    def check_launches(label, per_frame, frames, extra=None, engine=None, halo=None):
+    def check_launches(label, per_frame, frames, extra=None, engine=None, paths=None):
         """The launch counts of a run of ``frames`` frames; given ``engine``,
-        also its conv_stage launches by path (``halo``: the halo launches a
-        frame must come to)."""
+        also its conv_stage launches by path (``paths``: what they must come
+        to a frame) and by stage."""
         launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
                     "act_stats": kernels.act_stats.launches}
         want = dict({"act_stats": 0}, **{k: v * frames for k, v in per_frame.items()})
@@ -308,9 +316,12 @@ def main() -> int:
             got_paths = dict(kernels.conv_stage.path_launches)
             print(f"{label} conv_stage launches by path: {got_paths}, expected {want_paths} "
                   f"({split} a frame)")
-            if got_paths != want_paths or (halo is not None and split["halo"] != halo):
+            if got_paths != want_paths or (paths is not None and split != paths):
                 failures.append(f"{label} launches by path")
-            launches = dict(launches, paths=got_paths)
+            got_stages = dict(kernels.conv_stage.stage_launches)
+            if got_stages != {s.stage.name: runs for s in engine.steps}:
+                failures.append(f"{label} launches by stage")
+            launches = dict(launches, paths=got_paths, stages=got_stages)
         return launches
 
     def failed(phase: str) -> bool:
@@ -574,6 +585,56 @@ def main() -> int:
     if failed("phase 2, halo"):
         return 1
 
+    print("phase 2, strided and window: the stride-2 and 9x9 paths at grids the frame "
+          "does not give, bf16 and int8", flush=True)
+
+    def odd_step(label, path, kshape, hw, quant, pack=False):
+        """A seeded stage of ``path`` on an input of grid ``hw`` as a step of
+        the frame: a strided conv (3x3 stride 2, TF SAME pads, ReLU epilogue,
+        affine + ReLU prologue, moments), a 9x9 conv (bias epilogue, the same
+        prologue and moments) or, ``pack``, the stem's 9x9 from an f4 pack
+        (contract epilogue, no prologue)."""
+        kh, kw, cin, cout = kshape
+        kernel = (hrng.standard_normal(kshape) / np.sqrt(kh * kw * cin)).astype(np.float32)
+        bias = (hrng.standard_normal(cout) * 0.1).astype(np.float32)
+        stride = 2 if path == "strided" else 1
+        out_hw = tuple(-(-d // stride) for d in hw)
+        pads = tuple(max((o - 1) * stride + kh - d, 0) // 2 for o, d in zip(out_hw, hw))
+        contract = dict(cscale=(hrng.random(cout) + 0.5).astype(np.float32),
+                        cshift=(hrng.standard_normal(cout) * 0.1).astype(np.float32))
+        scale = (hrng.random(cin) * 2.5 + 0.5).astype(np.float32) if quant else None
+        st = make_conv_stage(label, kernel, bias, in_hw=hw, out_hw=out_hw, stride=stride,
+                             pads=pads, epi="contract" if pack else
+                             "relu" if path == "strided" else "bias", device=dev,
+                             pack_c=384 if pack else 0, act_scale=scale,
+                             **(contract if pack else {}))
+        if st.path != path:
+            failures.append(f"{label}: {st.path} path")
+        return SimpleNamespace(stage=st, src=-1 if pack else 0, in_relu=True, skip_in=None,
+                               skip_out=None, slot=-1 if pack else 0)
+
+    # check_stage's frame pack for the stem at 12x28
+    packer = SimpleNamespace(pack_frame=lambda t: fused._pack(t, pin=False),
+                             plan=SimpleNamespace(input_shape=(12, 28, 17)))
+    strided_odd, window_odd = [], []
+    for quant in (False, True):
+        kind = " int8" if quant else ""
+        for hw in ((73, 147), (5, 11)):
+            for kshape in ((3, 3, 32, 16), (3, 3, 16, 32)):
+                label = f"strided {kshape[2]}->{kshape[3]} {hw[0]}x{hw[1]}{kind}"
+                step = odd_step(label, "strided", kshape, hw, quant)
+                for dual in (False, True):
+                    strided_odd.append(check_stage(None, label, step, dual=dual))
+            label = f"window 9x9 16->3 {hw[0]}x{hw[1]}{kind}"
+            step = odd_step(label, "window", (9, 9, 16, 3), hw, quant)
+            for dual in (False, True):
+                window_odd.append(check_stage(None, label, step, dual=dual))
+        label = f"window stem 17->32 12x28{kind}"
+        window_odd.append(check_stage(packer, label, odd_step(
+            label, "window", (9, 9, 17, 32), (12, 28), quant, pack=True)))
+    if failed("phase 2, strided and window"):
+        return 1
+
     # ---- phase 3: the main path, single and dual style ------------------------
     print(f"phase 3: {N_FRAMES} frames of {SPEC} through video.stylize_video", flush=True)
     rng = np.random.default_rng(SEED)
@@ -621,7 +682,7 @@ def main() -> int:
                         lambda i, frame: results.__setitem__(i, frame))
     torch.cuda.synchronize()
     launches = check_launches("single", per_frame, N_FRAMES + 1, engine=fused,
-                              halo=12)  # + warm-up
+                              paths=PATHS_960)  # + warm-up
     style_params = run["style_params"]
     if tuple(style_params.shape) != (1, 1, 2662) or not torch.isfinite(style_params).all():
         failures.append("style params")
@@ -646,7 +707,8 @@ def main() -> int:
     run2 = stylize_video(model2, fused2, style_images, frames2,
                          lambda i, frame: results2.__setitem__(i, frame), style_weights=ramp)
     torch.cuda.synchronize()
-    launches2 = check_launches("dual", per_frame, N_FRAMES + 1, engine=fused2, halo=12)
+    launches2 = check_launches("dual", per_frame, N_FRAMES + 1, engine=fused2,
+                               paths=PATHS_960)
     style_params2 = run2["style_params"]
     if tuple(style_params2.shape) != (1, 2, 2662) or not torch.isfinite(style_params2).all():
         failures.append("dual style params")
@@ -806,7 +868,7 @@ def main() -> int:
         counts = check_launches(label, {"conv_stage": n_st, "finish": 1}, len(frs) + 1,
                                 {"conv_stage": n_st * (len(frs) + 1 + N_CAL),
                                  "act_stats": n_st * N_CAL}, engine=bf16_engine,
-                                halo=13 if bf16_engine.three_seg else 12)
+                                paths=PATHS_1920 if bf16_engine.three_seg else PATHS_960)
         engine = run_q["engine"]
         prep_q = engine.prepare_style(sp, weights_t)
         errs = check_int8_frames(label, bf16_engine, engine, res, frs, prep, prep_q)
@@ -1035,7 +1097,7 @@ def main() -> int:
                          lambda i, frame: results1.__setitem__(i, frame))
     torch.cuda.synchronize()
     launches1 = check_launches("rst1920", per_frame1, N_FRAMES + 1, engine=fused1,
-                               halo=13)  # + warm-up
+                               paths=PATHS_1920)  # + warm-up
     style_params1 = run1["style_params"]
     if tuple(style_params1.shape) != (1, 1, 2678) or not torch.isfinite(style_params1).all():
         failures.append("rst1920 style params")
@@ -1806,6 +1868,49 @@ def main() -> int:
                 "rst1920_int8_ms": sum(int8_rows1[i]["ms"] for i in idx1),
                 "odd_grids_max_abs_err": max(r["err"] for r in halo_rows)}
 
+    def stage_entry(name, stages, odd):
+        """The launches of ``stages`` (stage names) of one rst960 frame,
+        summed, bf16 single style; int8, dual and rst1920 beside; ``odd``:
+        phase 2's rows at grids the frame does not give."""
+        idx = [i for i, r in enumerate(rows) if r["name"] in stages]
+        idx1 = [i for i, r in enumerate(rows1) if r["name"] in stages]
+        pick, pick1 = [rows[i] for i in idx], [rows1[i] for i in idx1]
+        path = pick[0]["path"]
+        return {"name": name, "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
+                "replaces": f"{TPU_KERNEL}:1190", "also_replaces": f"{TPU_KERNEL}:1024",
+                "path": path, "stages": list(stages),
+                "launches": sum(launches["stages"].get(n, 0) for n in stages),
+                "max_abs_err": max(r["err"] for r in pick),
+                "ms": sum(r["ms"] for r in pick), "plain_ms": sum(r["plain_ms"] for r in pick),
+                "bound_ms": bound_sum(pick), "bound_by": bound_by(pick),
+                "library_ms": sum(r["library_ms"] for r in pick),
+                "device_ms": sum(r["device_ms"] for r in pick),
+                "library_device_ms": sum(r["library_device_ms"] for r in pick),
+                "per": f"one rst960 frame's {', '.join(stages)} launches, summed (ms, "
+                       "library_ms: a wrapper call timed with CUDA events; device_ms, "
+                       "library_device_ms: a CUDA graph's replay)",
+                "stage_ms": {r["name"]: r["ms"] for r in pick},
+                "stage_device_ms": {r["name"]: r["device_ms"] for r in pick},
+                "stage_library_device_ms": {r["name"]: r["library_device_ms"] for r in pick},
+                "stage_bound_ms": {r["name"]: max(r["ops_ms"], r["bytes_ms"]) for r in pick},
+                "dual_launches": sum(launches2["stages"].get(n, 0) for n in stages),
+                "dual_ms": sum(dual_rows.get(i, rows[i])["ms"] for i in idx),
+                "int8_launches": sum(int8_runs["int8"]["launches"]["stages"].get(n, 0)
+                                     for n in stages),
+                "int8_max_abs_err": max(int8_rows[i]["err"] for i in idx),
+                "int8_ms": sum(int8_rows[i]["ms"] for i in idx),
+                "int8_device_ms": sum(int8_rows[i]["device_ms"] for i in idx),
+                "int8_bound_ms": bound_sum(int8_rows[i] for i in idx),
+                "rst1920_launches": sum(launches1["stages"].get(n, 0) for n in stages),
+                "rst1920_max_abs_err": max(r["err"] for r in pick1),
+                "rst1920_ms": sum(r["ms"] for r in pick1),
+                "rst1920_device_ms": sum(r["device_ms"] for r in pick1),
+                "rst1920_library_device_ms": sum(r["library_device_ms"] for r in pick1),
+                "rst1920_bound_ms": bound_sum(pick1),
+                "rst1920_stage_device_ms": {r["name"]: r["device_ms"] for r in pick1},
+                "rst1920_int8_device_ms": sum(int8_rows1[i]["device_ms"] for i in idx1),
+                "odd_grids_max_abs_err": max(r["err"] for r in odd)}
+
     table = {"kernels": [
         dict({"name": "conv_stage", "route": "cuda", "source": f"{SOURCES}/conv_stage.cu",
               "replaces": f"{TPU_KERNEL}:936", "launches": launches["conv_stage"],
@@ -1847,6 +1952,10 @@ def main() -> int:
               "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"]},
              **rst1920(rows1), **rst1920(int8_rows1, "rst1920_int8_")),
         halo_entry(),
+        stage_entry("conv_stage_stem", ("stem",), [r for r in window_odd if "stem" in r["name"]]),
+        stage_entry("conv_stage_final", ("final",),
+                    [r for r in window_odd if "stem" not in r["name"]]),
+        stage_entry("conv_stage_strided", ("c1", "c2", "c3"), strided_odd),
         {"name": "finish", "route": "cuda", "source": f"{SOURCES}/finish.cu",
          "replaces": f"{TPU_KERNEL}:1601", "launches": launches["finish"],
          "max_abs_err": fin["err"], "ms": fin["ms"], "plain_ms": fin["plain_ms"],

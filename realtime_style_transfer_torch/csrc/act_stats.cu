@@ -12,7 +12,7 @@
 //
 // A separate pass, where the TPU fuses it into the conv: it runs only while
 // calibrating or checking, never per deploy frame; it counts each element
-// once, which the gather path (one transform per tap) cannot; and it leaves
+// once, which the conv stages' overlapping input tiles cannot; and it leaves
 // the register-bound conv kernel alone.
 //
 // Bound on the H100: one read of the stage input (and skip, weight plane),

@@ -5,8 +5,11 @@ turns A, B, B, A, one process a turn that imports ``realtime_style_transfer_torc
 from that root (a checkout or a ``git archive`` of another commit), builds its
 kernels into the root's own ``build/`` and times, with CUDA events, the
 single-style ``stylize_prepacked_raw`` frame of seeded full-width engines:
-rst-960-120-128-17 and rst-1920-120-128-17, bf16 and int8 (seeded scales).
-Each figure is the median of 3 windows of 30 frames after 5 warm-up frames.
+rst-960-120-128-17 and rst-1920-120-128-17, bf16 and int8 (seeded scales),
+and a frame of the replay of an 8-frame chunk's CUDA graph (recorded by
+``stylize_prepacked_chunk``), the frame's device time without the host's
+launch costs.  Each figure is the median of 3 windows of 30 calls after 5
+warm-up calls.
 Each turn also counts the elements in which two calls on one frame differ.
 Prints one JSON line a turn, then the median of each root's turns beside the
 card's name and power limit.  Needs one CUDA device.
@@ -78,6 +81,10 @@ for spec in ("rst-960-120-128-17", "rst-1920-120-128-17"):
             out[f"{spec} {kind} differing"] = int((first != second).sum())
             out[f"{spec} {kind} ms"] = window_ms(
                 lambda: engine.stylize_prepacked_raw(packed, prep))
+            packs = torch.stack([packed] * 8)
+            engine.stylize_prepacked_chunk(packs, prep)
+            out[f"{spec} {kind} chunk replay ms"] = window_ms(
+                engine.chunk_graphs[8].graph.replay) / 8
     del model, bf16
 print("FRAME_AB " + json.dumps(out), flush=True)
 """

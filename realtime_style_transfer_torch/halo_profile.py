@@ -1,26 +1,33 @@
-"""Where a halo-path launch of ``csrc/conv_stage.cu`` spends its time, on one card.
+"""Where a launch of ``csrc/conv_stage.cu`` spends its time, on one card.
 
-    python -m realtime_style_transfer_torch.halo_profile [PARENT_ROOT]
+    python -m realtime_style_transfer_torch.halo_profile [ROOT ...]
 
-For the halo stages of the flagship frame (res0b, res0a, e0, e1 at their real
-shapes, e2 of rst-1920, and a 5x11 grid that is one block), bf16 and int8,
-with an affine + ReLU prologue and moments, prints the device time of one
-launch as the replay of a CUDA graph of 20 launches, beside ``F.conv2d``
-bf16 on the same input (bf16 stages) and, given PARENT_ROOT (a checkout of a
-version whose ``conv_stage.cu`` runs such stages on its gather path, with
-``rst_conv_stage``'s argument list), that kernel on the same stage.  Then the
-phases of a block, read by ``clock64`` in a copy of ``conv_stage.cu`` with
-counters added at fixed points of ``conv_halo_kernel`` (warp 0, lane 0 of
-each block, microseconds at the card's maximum SM clock, the median over the
-blocks).  Needs one CUDA device, ``nvcc`` and ``nvidia-smi``.
+For the stages of the flagship frame on each path of the kernel at their
+real shapes (window: the stem from the f4 pack and the final conv; strided:
+c1, c2, and c3 of rst-1920; halo: res0b, res0a, e0, e1, e2 of rst-1920 and a
+5x11 grid that is one block), bf16 and int8, each with its frame's prologue
+(an affine + ReLU prologue and moments on the final and halo stages), prints
+the device time of one launch as the replay of a CUDA graph of 20 launches,
+beside ``F.conv2d`` bf16 on the same input (bf16 stages) and the same stage
+of each ROOT, a checkout of another version of the port (a ``git archive``
+of an earlier commit): its own ``make_conv_stage`` lays the stage out and its
+own ``conv_stage`` launches its own build, so its weight layout always
+matches its source.  Then the phases of a block, read by ``clock64`` in a
+copy of ``conv_stage.cu`` with counters added at the ``// PROFILE LAP i``
+markers of ``conv_halo_kernel`` and ``conv_window_kernel`` (warp 0, lane 0
+of each block, microseconds at the card's maximum SM clock, the median over
+the blocks).  Needs one CUDA device, ``nvcc`` and ``nvidia-smi``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
+import importlib.util
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -29,36 +36,60 @@ import torch.nn.functional as F
 
 from .ops import kernels
 from .ops.conv import pack_transpose_kernel
-from .ops.kernels import _ARGTYPES, Prologue, launch_conv_stage, make_conv_stage
+from .ops.kernels import _ARGTYPES, Prologue, launch_conv_stage
+from .ops.packed_conv import pack
 from .timing import graph_ms
 
-PHASES = ("fill + fold", "halo wait", "prologue pass", "K loop", "sums to shared", "epilogue",
-          "moments flush")
-CASES = (("res0b", (120, 240), 128, 128, False), ("res0a", (120, 240), 32, 128, False),
-         ("e0", (120, 240), 128, 32, True), ("e1", (240, 480), 32, 16, True),
-         ("e2 (rst-1920)", (480, 960), 16, 8, True), ("one block", (5, 11), 128, 128, False))
+# the phases each instrumented kernel's PROFILE LAP markers close, in order
+PHASES = {
+    "conv_halo_kernel": ("fill + fold", "halo wait", "prologue pass", "K loop",
+                         "sums to shared", "epilogue", "moments flush"),
+    "conv_window_kernel": ("fill + fold", "input wait", "window pass", "K loop", "epilogue",
+                           "moments flush"),
+}
+# label, path, kernel (kh, kw, cin, cout), input grid, pack input, prologue
+CASES = (
+    ("stem", "window", (9, 9, 17, 32), (480, 960), True, False),
+    ("c1", "strided", (3, 3, 32, 16), (480, 960), False, False),
+    ("c2", "strided", (3, 3, 16, 32), (240, 480), False, False),
+    ("c3 (rst-1920)", "strided", (3, 3, 32, 32), (240, 480), False, False),
+    ("final", "window", (9, 9, 16, 3), (480, 960), False, True),
+    ("final (rst-1920)", "window", (9, 9, 8, 3), (960, 1920), False, True),
+    ("res0b", "halo", (3, 3, 128, 128), (120, 240), False, True),
+    ("res0a", "halo", (3, 3, 32, 128), (120, 240), False, True),
+    ("e0", "expand", (3, 3, 128, 32), (120, 240), False, True),
+    ("e1", "expand", (3, 3, 32, 16), (240, 480), False, True),
+    ("e2 (rst-1920)", "expand", (3, 3, 16, 8), (480, 960), False, True),
+    ("one block", "halo", (3, 3, 128, 128), (5, 11), False, True),
+)
+
+
+def _kernel_span(text: str, name: str):
+    """(start, end) of the body of kernel ``name`` in ``text``."""
+    head = f"{name}(const Params p) {{\n"
+    start = text.index(head) + len(head)
+    return start, text.index("\n}\n", start)
 
 
 def profiled_source(text: str) -> str:
-    """conv_stage.cu with clock64 counters in conv_halo_kernel: each of its
-    ``// PROFILE LAP i`` markers, in order i = 0, 1, ..., closes counter i;
-    each block's warp 0 writes them to the buffer passed as ``kmap`` (which
-    the halo path does not read)."""
-    head, sep, body = text.partition("conv_halo_kernel(const Params p) {\n")
-    if not sep:
-        raise ValueError("conv_halo_kernel not found")
-    kernel, sep2, rest = body.partition("\n}\n")
-    laps = [int(i) for i in re.findall(r"// PROFILE LAP (\d+)", kernel)]
-    if laps != list(range(len(PHASES))):
-        raise ValueError(f"conv_halo_kernel's PROFILE LAP markers are {laps}, "
-                         f"not 0..{len(PHASES) - 1}")
-    kernel = ("  long long _c[8] = {0}, _t = clock64(), _u;\n"
-              "#define LAP(i) do { _u = clock64(); _c[i] += _u - _t; _t = _u; } while (0)\n"
-              + re.sub(r"// PROFILE LAP (\d+)", r"LAP(\1);", kernel) + "\n")
-    kernel += ("  if (threadIdx.x == 0)\n    for (int i = 0; i < 8; ++i)\n"
-               "      reinterpret_cast<long long*>(const_cast<int*>(p.kmap))[blockIdx.x * 8 + i]"
-               " = _c[i];\n#undef LAP")
-    return head + sep + kernel + sep2 + rest
+    """conv_stage.cu with clock64 counters in each kernel of PHASES: its
+    ``// PROFILE LAP i`` markers, in order i = 0, 1, ..., close counter i;
+    each block's warp 0 writes them to ``Params::counters``, 8 a block."""
+    for name, phases in PHASES.items():
+        start, end = _kernel_span(text, name)
+        kernel = text[start:end]
+        laps = [int(i) for i in re.findall(r"// PROFILE LAP (\d+)", kernel)]
+        if laps != list(range(len(phases))):
+            raise ValueError(f"{name}'s PROFILE LAP markers are {laps}, "
+                             f"not 0..{len(phases) - 1}")
+        kernel = ("  long long _c[8] = {0}, _t = clock64(), _u;\n"
+                  "#define LAP(i) do { _u = clock64(); _c[i] += _u - _t; _t = _u; } while (0)\n"
+                  + re.sub(r"// PROFILE LAP (\d+)", r"LAP(\1);", kernel) + "\n"
+                  "  if (threadIdx.x == 0 && blockIdx.y == 0)\n"
+                  "    for (int i = 0; i < 8; ++i) p.counters[blockIdx.x * 8 + i] = _c[i];\n"
+                  "#undef LAP")
+        text = text[:start] + kernel + text[end:]
+    return text
 
 
 def _build(text: str, name: str) -> ctypes.CDLL:
@@ -73,6 +104,40 @@ def _build(text: str, name: str) -> ctypes.CDLL:
     return lib
 
 
+def load_package(root, alias: str):
+    """The ``kernels`` module of the port in checkout ``root``, its package
+    imported under the name ``alias`` beside this one (the package's modules
+    import each other relatively), building into ``root``'s own ``build/``."""
+    pkg = Path(root).resolve() / "realtime_style_transfer_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{alias}.ops.kernels")
+
+
+def _stage(k, label, path, kshape, kernel, hw, pack_input, quant, dev):
+    """The stage as ``k.make_conv_stage`` of a kernels module lays it out."""
+    kh, kw, cin, cout = kshape
+    bias, pads, stride, out_hw = np.zeros(cout, np.float32), (kh // 2, kw // 2), 1, hw
+    kw_args = {}
+    if path == "expand":  # the parity-packed 2x2 conv of an expand stage
+        packed, (pad_y, pad_x) = pack_transpose_kernel(torch.from_numpy(kernel))
+        kernel, pads, bias = packed.numpy(), (pad_y[0], pad_x[0]), np.tile(bias, 4)
+        kw_args["transpose_cout"] = cout
+    if path == "strided":  # the frame's contracts: even grids, TF SAME pads
+        stride, out_hw, pads = 2, (hw[0] // 2, hw[1] // 2), (0, 0)
+    epi = "contract" if path in ("strided", "window") and not label.startswith("final") \
+        else "bias" if path in ("expand", "window") else "relu"
+    if epi == "contract":
+        kw_args.update(cscale=np.ones(cout, np.float32), cshift=np.zeros(cout, np.float32))
+    return k.make_conv_stage(label, kernel, bias, in_hw=hw, out_hw=out_hw, stride=stride,
+                             pads=pads, epi=epi, device=dev, pack_c=384 if pack_input else 0,
+                             act_scale=np.full(cin, 2.0, np.float32) if quant else None,
+                             **kw_args)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("halo_profile: no CUDA device", file=sys.stderr)
@@ -81,58 +146,67 @@ def main(argv) -> int:
                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     mhz = float(card.split(",")[-1])
-    kernels.build(("conv_stage.cu",))
-    prof = _build(profiled_source((kernels.CSRC / "conv_stage.cu").read_text()), "halo_profile")
-    parent = None
-    if argv:
-        parent_cu = Path(argv[0]) / "realtime_style_transfer_torch" / "csrc" / "conv_stage.cu"
-        parent = _build(parent_cu.read_text(), "halo_profile_parent")
+    others = {Path(root).name: load_package(root, f"_halo_profile_root{i}")
+              for i, root in enumerate(argv)}
+    # every build at once: this source, its profiled copy, each root's source
+    with ThreadPoolExecutor() as pool:
+        prof = pool.submit(_build, profiled_source((kernels.CSRC / "conv_stage.cu").read_text()),
+                           "halo_profile")
+        builds = [pool.submit(k.build, ("conv_stage.cu",)) for k in (kernels, *others.values())]
+        prof = prof.result()
+        for b in builds:
+            b.result()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng, gen = np.random.default_rng(0), torch.Generator(device=dev).manual_seed(0)
     print(f"card: {card}", flush=True)
     for quant in (False, True):
-        for label, hw, cin, cout, transpose in CASES:
-            kernel = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(
-                np.float32)
-            bias, pads = np.zeros(cout, np.float32), (1, 1)
-            if transpose:
-                packed, (pad_y, pad_x) = pack_transpose_kernel(torch.from_numpy(kernel))
-                kernel, pads, bias = packed.numpy(), (pad_y[0], pad_x[0]), np.tile(bias, 4)
-            st = make_conv_stage(label, kernel, bias, in_hw=hw, out_hw=hw, stride=1, pads=pads,
-                                 epi="bias" if transpose else "relu", device=dev,
-                                 transpose_cout=cout if transpose else 0,
-                                 act_scale=np.full(cin, 2.0, np.float32) if quant else None)
-            x = torch.rand(st.in_shape, generator=gen, device=dev).to(bf16)
-            xf = x.float().reshape(-1, cin)
-            pro = Prologue(torch.stack([xf.sum(0), (xf * xf).sum(0)]).contiguous(),
-                           float(xf.shape[0]), torch.rand(cin, generator=gen, device=dev) + 0.5,
-                           torch.rand(cin, generator=gen, device=dev) - 0.5, 1e-5, True)
+        for label, path, kshape, hw, pack_input, prologue in CASES:
+            kh, kw, cin, _ = kshape
+            kernel = (rng.standard_normal(kshape) / np.sqrt(kh * kw * cin)).astype(np.float32)
+            st = _stage(kernels, label, path, kshape, kernel, hw, pack_input, quant, dev)
+            xl = torch.rand(hw + (cin,), generator=gen, device=dev).to(bf16)
+            x = xl
+            if pack_input:
+                x = torch.zeros(st.in_shape, dtype=bf16, device=dev)
+                x[:, :, :16 * cin] = pack(xl[None], 4)[0]
+            pro = stats = None
+            if prologue:
+                xf = xl.float().reshape(-1, cin)
+                pro = Prologue(torch.stack([xf.sum(0), (xf * xf).sum(0)]).contiguous(),
+                               float(xf.shape[0]),
+                               torch.rand(cin, generator=gen, device=dev) + 0.5,
+                               torch.rand(cin, generator=gen, device=dev) - 0.5, 1e-5, True)
+                stats = torch.zeros((2, st.c_log), device=dev)
             out = torch.empty(st.out_shape, dtype=bf16, device=dev)
-            stats = torch.zeros((2, st.c_log), device=dev)
-            row = [f"{label}{' int8' if quant else ''} {hw[0]}x{hw[1]}x{cin} -> {st.n}:"]
-            halo_ms = graph_ms(lambda: kernels.conv_stage(x, st, out, prologue=pro,
-                                                          stats_out=stats))
-            row.append(f"halo {halo_ms:.4f} ms")
-            if parent is not None:
-                parent_ms = graph_ms(lambda: launch_conv_stage(
-                    parent, x, st, out, "gather", st.kmap, prologue=pro, stats_out=stats))
-                row.append(f"parent's gather path {parent_ms:.4f} ms")
+            row = [f"{label}{' int8' if quant else ''} ({st.path}) {hw[0]}x{hw[1]}x{cin} "
+                   f"-> {st.n}:"]
+            ms = graph_ms(lambda: kernels.conv_stage(x, st, out, prologue=pro, stats_out=stats))
+            row.append(f"kernel {ms:.4f} ms")
+            for name, k in others.items():
+                ost = _stage(k, label, path, kshape, kernel, hw, pack_input, quant, dev)
+                opro = k.Prologue(*pro) if pro else None
+                other_ms = graph_ms(lambda: k.conv_stage(x, ost, out, prologue=opro,
+                                                         stats_out=stats))
+                row.append(f"{name} {other_ms:.4f} ms")
             if not quant:
-                xp = F.pad(x.permute(2, 0, 1)[None], (st.pad_left, st.kw - 1 - st.pad_left,
-                                                      st.pad_top, st.kh - 1 - st.pad_top))
+                oh, ow = st.out_hw
+                pb = (oh - 1) * st.stride + st.kh - hw[0] - st.pad_top
+                pr = (ow - 1) * st.stride + st.kw - hw[1] - st.pad_left
+                xp = F.pad(xl.permute(2, 0, 1)[None], (st.pad_left, pr, st.pad_top, pb))
                 xp = xp.contiguous(memory_format=torch.channels_last)
                 wt = st.weight_oihw().to(bf16).contiguous(memory_format=torch.channels_last)
-                row.append(f"F.conv2d {graph_ms(lambda: F.conv2d(xp, wt)):.4f} ms")
+                row.append(f"F.conv2d {graph_ms(lambda: F.conv2d(xp, wt, stride=st.stride)):.4f}"
+                           " ms")
             counters = torch.zeros(st.grid[0] * 8, dtype=torch.int64, device=dev)
             for _ in range(3):
                 counters.zero_()
-                launch_conv_stage(prof, x, st, out, "halo", counters, prologue=pro,
-                                  stats_out=stats)
+                launch_conv_stage(prof, x, st, out, counters, prologue=pro, stats_out=stats)
             torch.cuda.synchronize()
-            us = counters.view(-1, 8)[:, :len(PHASES)].double().cpu() / mhz
+            phases = PHASES["conv_window_kernel" if st.path == "window" else "conv_halo_kernel"]
+            us = counters.view(-1, 8)[:, :len(phases)].double().cpu() / mhz
             med = us.median(dim=0).values
             row.append("phases (us, median of " + f"{us.shape[0]} blocks): " + ", ".join(
-                f"{name} {float(v):.2f}" for name, v in zip(PHASES, med))
+                f"{name} {float(v):.2f}" for name, v in zip(phases, med))
                 + f"; a block {float(us.sum(dim=1).median()):.2f}")
             print("  ".join(row), flush=True)
     return 0

@@ -15,16 +15,17 @@ GPU cannot wait for each other inside a launch.
 
 Bounds on the H100, from the flagship's shapes: the conv stages are bound by
 operations (about 127 GFLOP against 0.35 GB a frame), so the kernel keeps
-every conv on the tensor cores (``mma.sync``, ``wgmma`` on the halo path) and
-fuses the CIN prologue, the
+every conv on the tensor cores (``wgmma``) and fuses the CIN prologue, the
 epilogue and the moments into the conv, so no activation makes an extra trip
-through device memory.  Each stage takes one of three A-operand paths,
+through device memory.  Every stage loads its block's input tile into shared
+memory once and streams its weights through a ring of slices by TMA copies
+(:func:`halo_slices`).  Each stage takes one of three A-operand paths,
 chosen from its geometry alone (:func:`stage_path`): the 9x9 stages read
-their MMA operands from a shared-memory input window four output rows tall
-(``window``), the stride-1 stages of at most 9 taps from the input halo of an
-8x16 output tile in shared memory, with the weights streaming through a ring
-of slices by TMA copies (``halo``), the stride-2 stages gather A tiles in
-blocks of 128 pixels (``gather``); ``PERF.md`` has the measurements.
+their MMA operands from a pixel-major input window four output rows tall,
+their K running along a window row (``window``), the stride-1 stages of at
+most 9 taps from the input halo of an 8x16 output tile (``halo``), the
+stride-2 stages from the same tile over an input halo split by column parity
+(``strided``); ``PERF.md`` has the measurements.
 ``finish`` and ``act_stats`` are one elementwise pass each, bound by bytes.
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to the
@@ -32,7 +33,8 @@ plain PyTorch version (same signature, same rounding points: bf16 storage,
 f32 affine, f32 moments taken before rounding; int8 sums exact in float64), a
 CUDA tensor launches the kernel or raises.  Each wrapper's ``launches`` counts
 kernel launches only (a launch recorded into a CUDA graph counts once, when it
-is recorded; ``conv_stage.path_launches`` splits its count by path);
+is recorded; ``conv_stage.path_launches`` splits its count by path,
+``conv_stage.stage_launches`` by stage name);
 :func:`replay_graph` counts the replays of such a graph.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
@@ -67,17 +69,15 @@ SOURCES = ("conv_stage.cu", "finish.cu", "act_stats.cu", "probe_int8.cu", "probe
            "conv_matmul.cu", "probe_smem.cu", "cin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-BK = 32          # reduction slice of conv_stage.cu: K is padded to it
-G_BM = 128       # output pixels a gather-path block of conv_stage.cu
-WINDOW_BM = 64   # output columns a window-path block of conv_stage.cu
+BK = 32          # K is padded to it: one wgmma K step of int8
+WINDOW_BM = 64   # output columns a window-path block of conv_stage.cu (BM)
 HALO_TH = 8      # output rows of a halo-path block of conv_stage.cu
 HALO_TW = 16     # output columns of a halo-path block
-RING = 3         # weight slices a halo-path block keeps in shared memory ...
+RING = 3         # weight slices a block keeps in shared memory ...
 SLICE_BYTES = 128  # ... each this many bytes of K for every column of the block
-MAX_HALO_BYTES = 200 * 1024  # conv_stage.cu's cap on a halo block's dynamic shared memory
-PATHS = {"gather": 0, "window": 1, "halo": 2}  # conv_stage.cu's PATH_* codes
+MAX_DYN_BYTES = 200 * 1024  # conv_stage.cu's cap on a block's dynamic shared memory
+PATHS = {"strided": 0, "window": 1, "halo": 2}  # conv_stage.cu's PATH_* codes
 MOMENT_GROUP = 32  # conv_stage.cu's GROUP: blocks one block adds the moments of
-Q_CIN_ALIGN = 32  # an int8 window stage pads cin_k to it: one tap a k32 slice
 MAX_CIN = 128    # widest CIN prologue conv_stage.cu holds in shared memory
 EPI = {"contract": 0, "relu": 1, "bias": 2}
 
@@ -210,12 +210,13 @@ class ConvStage:
     dense conv of :func:`..conv.pack_transpose_kernel`: its ``n = 4 * c_log``
     columns are parity classes, stored through depth-to-space.  ``path`` is
     the kernel's A-operand path (:func:`stage_path`): a ``window`` stage reads
-    its MMA fragments from a shared-memory input window, with channels padded
-    to ``cin_k``, a multiple of 16 (of 32 for an int8 stage); a ``halo`` stage
-    from the input halo of its output tile, with its weights in ``wslices``;
-    a ``gather`` stage gathers A tiles through ``kmap``.  Halo and gather
-    stages keep ``cin_k = cin`` and hold ``kmap`` (a halo stage's K order is
-    the same; its kernel does not read the map).
+    its MMA fragments from a pixel-major input window, its K tap rows of
+    ``k_row`` operands (``kw`` taps of ``cin_k``, :func:`window_pitch`: cin
+    rounded up to 2, or 4 for an int8 stage; rounded up to a wgmma K step,
+    zeros at the pad channels and the tail); a ``halo`` or ``strided`` stage
+    from the input halo of its output
+    tile, with ``cin_k = cin`` and ``k_row = kw * cin``.  Every stage's
+    kernel streams its weights from ``wslices``.
 
     An int8 (``quant``) stage holds int8 weights with the activation scales
     folded in, ``dequant = s_w / 127`` per output column and ``act_inv =
@@ -223,9 +224,7 @@ class ConvStage:
     """
 
     name: str
-    w: torch.Tensor          # (n, k_pad) bf16 (int8 if quant), k = (ty * kw + tx) * cin_k + c
-    kmap: Optional[torch.Tensor]  # halo and gather stages: (k_pad,) int32,
-                             # (ty << 20) | (tx << 10) | c, -1 for padding
+    w: torch.Tensor          # (n, k_pad) bf16 (int8 if quant), k = ty * k_row + tx * cin_k + c
     bias: torch.Tensor       # (n,) f32
     cscale: Optional[torch.Tensor]  # (n,) f32, epi == 'contract'
     cshift: Optional[torch.Tensor]
@@ -242,12 +241,13 @@ class ConvStage:
     pad_left: int
     transpose: bool
     epi: str
-    cin_k: int               # channel stride of the K index
-    path: str                # "window", "halo" or "gather"
+    cin_k: int               # channel pitch of the K index
+    k_row: int               # K operands a tap row
+    path: str                # "window", "halo" or "strided"
     quant: bool = False
     dequant: Optional[torch.Tensor] = None  # (n,) f32, int8 only
     act_inv: Optional[torch.Tensor] = None  # (cin,) f32, int8 only
-    # halo path: ``w`` as the kernel streams it (:func:`halo_slices`)
+    # ``w`` as the kernel streams it (:func:`halo_slices`)
     wslices: Optional[torch.Tensor] = None  # uint8
     # the kernel's moment scratch (:func:`moment_scratch`): static, so a CUDA
     # graph captures it; the kernel leaves the tickets zero after each launch
@@ -255,16 +255,13 @@ class ConvStage:
     tickets: Optional[torch.Tensor] = None   # int32, zero
 
     @property
-    def window(self) -> bool:
-        return self.path == "window"
-
-    @property
     def k_real(self) -> int:
-        return self.kh * self.kw * self.cin_k
+        return self.kh * self.k_row
 
     def weight_oihw(self) -> torch.Tensor:
         """The stage's bf16 (or int8) weights as an f32 OIHW tensor."""
-        w = self.w[:, :self.k_real].float().reshape(self.n, self.kh, self.kw, self.cin_k)
+        w = self.w[:, :self.k_real].float().reshape(self.n, self.kh, self.k_row)
+        w = w[:, :, :self.kw * self.cin_k].reshape(self.n, self.kh, self.kw, self.cin_k)
         return w[..., :self.cin].permute(0, 3, 1, 2)
 
     @property
@@ -291,27 +288,85 @@ class ConvStage:
         blocks along the n columns)."""
         oh, ow = self.out_hw
         if self.path == "window":
-            rows = 4 if self.block_n <= 32 else 1  # window_rows()
-            bx = -(-oh // rows) * -(-ow // WINDOW_BM)
-        elif self.path == "halo":
-            bx = -(-oh // HALO_TH) * -(-ow // HALO_TW)
+            bx = -(-oh // window_rows(self.block_n)) * -(-ow // WINDOW_BM)
         else:
-            bx = -(-(oh * ow) // G_BM)
+            bx = -(-oh // HALO_TH) * -(-ow // HALO_TW)
         return bx, -(-self.n // self.block_n)
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of a halo-path block (:func:`halo_smem_bytes`)."""
-        return halo_smem_bytes(self.kh, self.kw, self.cin_k, self.block_n, self.quant)
+        """Dynamic shared memory of a block (:func:`window_smem_bytes`,
+        :func:`halo_smem_bytes`)."""
+        if self.path == "window":
+            return window_smem_bytes(self.kh, self.kw, self.cin, self.block_n, self.quant,
+                                     self.pack_c > 0)
+        return halo_smem_bytes(self.kh, self.kw, self.cin_k, self.block_n, self.quant,
+                               self.path == "strided")
 
 
 def stage_path(stride: int, kh: int, kw: int) -> str:
     """conv_stage.cu's A-operand path for a stage's geometry: ``window`` at
     stride 1 with more than 9 taps, ``halo`` at stride 1 with at most 9,
-    ``gather`` otherwise."""
+    ``strided`` at stride 2."""
+    if stride == 2:
+        return "strided"
     if stride != 1:
-        return "gather"
+        raise ValueError(f"no path of conv_stage.cu takes stride {stride}")
     return "window" if kh * kw > 9 else "halo"
+
+
+def window_rows(block_n: int) -> int:
+    """Output rows of a window-path block (conv_stage.cu's window_rows)."""
+    return 4 if block_n <= 32 else 2
+
+
+def window_pitch(cin: int, quant: bool) -> int:
+    """Operands of a tap in a window stage's K (conv_stage.cu's
+    window_pitch): cin rounded up to a 32-bit word, 2 bf16 or 4 int8."""
+    align = 4 if quant else 2
+    return -(-cin // align) * align
+
+
+def window_pixel_bytes(cin: int, quant: bool) -> int:
+    """Bytes of a window pixel in shared memory: a tap's, 16 more where a
+    tap is whole 32-byte K steps (conv_stage.cu's window_pixel_bytes)."""
+    tap = window_pitch(cin, quant) * (1 if quant else 2)
+    return tap + (0 if tap % 32 else 16)
+
+
+def window_k_row(kw: int, cin: int, quant: bool) -> int:
+    """K operands of a window stage's tap row: kw pixels, rounded up to one
+    wgmma K step (16 bf16, 32 int8)."""
+    step = 32 if quant else 16
+    return -(-kw * window_pitch(cin, quant) // step) * step
+
+
+def window_cols(kw: int, cin: int, quant: bool) -> int:
+    """Pixels of a window row: WINDOW_BM plus the pixels a tap row's K run
+    reaches past its first, rounded up to 4."""
+    reach = -(-window_k_row(kw, cin, quant) // window_pitch(cin, quant))
+    return -(-(WINDOW_BM + reach) // 4) * 4
+
+
+def epilogue_bytes(pixels: int, block_n: int) -> int:
+    """conv_stage.cu's epi_bytes: the epilogue's f32 tile, [pixel][block_n +
+    4], the partials of 256 threads x 4 columns, sums and squares, and the
+    slots of 8 warps."""
+    return 4 * (pixels * (block_n + 4) + 2 * 4 * 256 + 2 * 8 * block_n)
+
+
+def window_smem_bytes(kh: int, kw: int, cin: int, block_n: int, quant: bool,
+                      pack: bool = False) -> int:
+    """conv_stage.cu's dynamic shared memory of a window-path block, each part
+    padded to 128 bytes: the window (window_rows + kh - 1 rows of
+    window_cols pixels), the raw bf16 input rows the fill stages (none for a
+    bf16 stage on an NHWC input, which fills the window directly), and the
+    weight ring; or the epilogue's bytes if those are larger."""
+    rows, cols = window_rows(block_n) + kh - 1, window_cols(kw, cin, quant)
+    raw = -(-rows * cols * cin * 2 // 128) * 128 if quant or pack else 0
+    fill = (-(-rows * cols * window_pixel_bytes(cin, quant) // 128) * 128 + raw
+            + RING * block_n * SLICE_BYTES)
+    return max(fill, epilogue_bytes(window_rows(block_n) * WINDOW_BM, block_n))
 
 
 def halo_pitch(cin_k: int, esize: int) -> int:
@@ -320,19 +375,27 @@ def halo_pitch(cin_k: int, esize: int) -> int:
     return 16 * (-(-cin_k * esize // 16) | 1)
 
 
-def halo_smem_bytes(kh: int, kw: int, cin_k: int, block_n: int, quant: bool) -> int:
-    """conv_stage.cu's dynamic shared memory of a halo-path block: the halo
-    tile, (HALO_TH + kh - 1) x (HALO_TW + kw - 1) pixels, padded to 128
-    bytes, then the weight ring, RING slices of ``block_n`` rows of
-    SLICE_BYTES, or, int8, the raw bf16 halo if that is larger; or the
-    epilogue's f32 tile, partials and slots if those are larger."""
-    pixels = (HALO_TH + kh - 1) * (HALO_TW + kw - 1)
+def halo_pixels(kh: int, kw: int, strided: bool = False) -> int:
+    """Pixels of a halo tile: (HALO_TH + kh - 1) x (HALO_TW + kw - 1), or at
+    stride 2 (2 HALO_TH + kh - 2) rows of two parity planes of HALO_TW + (kw
+    - 1) // 2 pixels."""
+    if strided:
+        return (2 * HALO_TH + kh - 2) * 2 * (HALO_TW + (kw - 1) // 2)
+    return (HALO_TH + kh - 1) * (HALO_TW + kw - 1)
+
+
+def halo_smem_bytes(kh: int, kw: int, cin_k: int, block_n: int, quant: bool,
+                    strided: bool = False) -> int:
+    """conv_stage.cu's dynamic shared memory of a halo- or strided-path block:
+    the halo tile (:func:`halo_pixels`), padded to 128 bytes, then the weight
+    ring, RING slices of ``block_n`` rows of SLICE_BYTES, or, int8, the raw
+    bf16 halo if that is larger; or the epilogue's f32 tile, partials and
+    slots if those are larger."""
+    pixels = halo_pixels(kh, kw, strided)
     esize = 1 if quant else 2
     tile = -(-pixels * halo_pitch(cin_k, esize) // 128) * 128
     ring = RING * block_n * SLICE_BYTES
-    # f32: the tile [pixel][block_n + 4], the partials of 256 threads x 4
-    # columns, sums and squares, and the slots of 8 warps
-    epilogue = 4 * (HALO_TH * HALO_TW * (block_n + 4) + 2 * 4 * 256 + 2 * 8 * block_n)
+    epilogue = epilogue_bytes(HALO_TH * HALO_TW, block_n)
     return max(tile + (max(ring, pixels * cin_k * 2) if quant else ring), epilogue)
 
 
@@ -384,8 +447,8 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
     """Lay out an HWIO ``kernel`` (f32 numpy) as a stage's operands.
 
     The stage's path follows from its geometry (:func:`stage_path`).  The
-    halo and gather paths need an NHWC input with ``cin % 8 == 0``; a halo
-    block must fit its shared memory.  Given the ``(cin,)`` activation scales
+    halo and strided paths need an NHWC input with ``cin % 8 == 0``; a block
+    must fit its path's shared memory.  Given the ``(cin,)`` activation scales
     of its input, ``act_scale``, the stage is int8 (:func:`quantize_kernel`);
     an int8 stage holds its ``act_inv`` row for at most MAX_CIN channels.  A
     geometry that no path takes raises ValueError.
@@ -407,19 +470,18 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
             raise ValueError(f"{name}: an int8 stage takes <= {MAX_CIN} input channels, "
                              f"got {cin}")
         kernel, dequant, act_inv = quantize_kernel(kernel, act_scale)
-    align = Q_CIN_ALIGN if quant else 16
-    cin_k = -(-cin // align) * align if path == "window" else cin
-    k_real = kh * kw * cin_k
+    if path == "window":
+        cin_k, k_row = window_pitch(cin, quant), window_k_row(kw, cin, quant)
+    else:
+        cin_k, k_row = cin, kw * cin
+    k_real = kh * k_row
     k_pad = -(-k_real // BK) * BK
-    padded = np.zeros((kh, kw, cin_k, n), np.float32)
-    padded[:, :, :cin] = kernel
+    taps = np.zeros((kh, kw, cin_k, n), np.float32)
+    taps[:, :, :cin] = kernel
+    rows = np.zeros((kh, k_row, n), np.float32)  # K = ty * k_row + tx * cin_k + c
+    rows[:, :kw * cin_k] = taps.reshape(kh, kw * cin_k, n)
     w = np.zeros((n, k_pad), np.float32)
-    w[:, :k_real] = padded.reshape(k_real, n).T
-    kmap = None
-    if path != "window":
-        kk = np.arange(k_real)
-        kmap = np.full(k_pad, -1, np.int32)
-        kmap[:k_real] = ((kk // (kw * cin)) << 20) | (((kk // cin) % kw) << 10) | (kk % cin)
+    w[:, :k_real] = rows.reshape(k_real, n).T
 
     def f32(a):
         return None if a is None else torch.tensor(np.asarray(a, np.float32), device=device)
@@ -429,20 +491,19 @@ def make_conv_stage(name: str, kernel: np.ndarray, bias: np.ndarray, *,
     stage = ConvStage(
         name=name,
         w=torch.tensor(w, device=device).to(torch.int8 if quant else torch.bfloat16),
-        kmap=None if kmap is None else torch.tensor(kmap, device=device),
         bias=f32(bias), cscale=f32(cscale), cshift=f32(cshift),
         in_hw=tuple(in_hw), cin=cin, pack_c=pack_c, out_hw=tuple(out_hw),
         n=n, c_log=transpose_cout or n, kh=kh, kw=kw, stride=stride,
         pad_top=pads[0], pad_left=pads[1], transpose=transpose_cout > 0, epi=epi,
-        cin_k=cin_k, path=path, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
+        cin_k=cin_k, k_row=k_row, path=path, quant=quant, dequant=f32(dequant), act_inv=f32(act_inv),
     )
-    if path == "halo" and stage.smem_bytes > MAX_HALO_BYTES:
-        raise ValueError(f"{name}: a {kh}x{kw} halo tile of {cin} channels needs "
-                         f"{stage.smem_bytes} bytes of shared memory, over the halo "
-                         f"path's {MAX_HALO_BYTES}")
+    if stage.smem_bytes > MAX_DYN_BYTES:
+        raise ValueError(f"{name}: a {kh}x{kw} tile of {cin} channels needs "
+                         f"{stage.smem_bytes} bytes of shared memory, over the {path} "
+                         f"path's {MAX_DYN_BYTES}")
     partials, tickets = moment_scratch(stage.grid, stage.block_n, device)
-    wslices = halo_slices(stage.w, stage.block_n) if path == "halo" else None
-    return dataclasses.replace(stage, partials=partials, tickets=tickets, wslices=wslices)
+    return dataclasses.replace(stage, partials=partials, tickets=tickets,
+                               wslices=halo_slices(stage.w, stage.block_n))
 
 
 # ---------------------------------------------------------------------------
@@ -619,17 +680,18 @@ def _prologue_args(pro: Optional[Prologue]):
 
 
 def launch_conv_stage(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage, out: torch.Tensor,
-                      path: str, kmap: torch.Tensor, *, prologue: Optional[Prologue] = None,
+                      counters: Optional[torch.Tensor] = None, *,
+                      prologue: Optional[Prologue] = None,
                       skip_in: Optional[torch.Tensor] = None,
                       skip_out: Optional[torch.Tensor] = None,
                       stats_out: Optional[torch.Tensor] = None) -> None:
-    """``rst_conv_stage`` of ``lib`` on stage ``st`` by ``path``, unchecked
-    and uncounted (``conv_stage`` checks its tensors first; ``halo_profile``
-    gives it another build of the source, another path and a counter buffer
-    as ``kmap``)."""
+    """``rst_conv_stage`` of ``lib`` on stage ``st``, unchecked and
+    uncounted (``conv_stage`` checks its tensors first; ``halo_profile``
+    gives it a profiled build of the source and ``counters``, the int64
+    buffer of its clock counters)."""
     oh, ow = st.out_hw
     err = lib.rst_conv_stage(
-        _ptr(x), _ptr(st.wslices if path == "halo" else st.w), _ptr(kmap),
+        _ptr(x), _ptr(st.wslices), _ptr(counters),
         _ptr(st.bias), _ptr(st.cscale), _ptr(st.cshift), *_prologue_args(prologue),
         float(prologue.count) if prologue else 1.0,
         float(prologue.eps) if prologue else 0.0,
@@ -637,7 +699,7 @@ def launch_conv_stage(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage, out: tor
         _ptr(skip_in), _ptr(skip_out), _ptr(out), _ptr(stats_out),
         st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, oh, ow, st.n,
         st.w.shape[1], st.kh, st.kw, st.stride, st.pad_top, st.pad_left, st.c_log,
-        int(st.transpose), EPI[st.epi], st.cin_k, PATHS[path], st.block_n,
+        int(st.transpose), EPI[st.epi], st.cin_k, PATHS[st.path], st.block_n,
         _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _ptr(st.partials),
         _ptr(st.tickets), st.partials.numel(), st.tickets.numel(), _stream(x))
     if err:
@@ -662,8 +724,8 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     bf16, f32 = torch.bfloat16, torch.float32
     _check_stage_inputs(x, st, prologue, skip_in)
     _check(out, f"{st.name} output", bf16, st.out_shape, dev)
-    if skip_out is not None and st.path == "window":
-        raise ValueError(f"{st.name}: the window path writes no skip_out")
+    if st.path == "window" and (skip_in is not None or skip_out is not None):
+        raise ValueError(f"{st.name}: the window path takes no skips")
     if skip_out is not None:
         _check(skip_out, f"{st.name} skip_out", bf16, st.in_shape, dev)
     if skip_out is not None and (st.stride != 1 or st.transpose
@@ -671,15 +733,17 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
         raise ValueError(f"{st.name}: skip_out needs a stride-1 centred conv")
     if stats_out is not None:
         _check(stats_out, f"{st.name} stats_out", f32, (2, st.c_log), dev)
-    launch_conv_stage(_lib("conv_stage.cu"), x, st, out, st.path, st.kmap, prologue=prologue,
+    launch_conv_stage(_lib("conv_stage.cu"), x, st, out, prologue=prologue,
                       skip_in=skip_in, skip_out=skip_out, stats_out=stats_out)
     conv_stage.launches += 1
     conv_stage.path_launches[st.path] += 1
+    conv_stage.stage_launches[st.name] = conv_stage.stage_launches.get(st.name, 0) + 1
     return out
 
 
 conv_stage.launches = 0
 conv_stage.path_launches = dict.fromkeys(PATHS, 0)  # the launches by A-operand path
+conv_stage.stage_launches = {}  # the launches by stage name
 
 
 def act_stats(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
@@ -755,6 +819,7 @@ replay_graph.replays = 0
 def reset_launch_counts() -> None:
     conv_stage.launches = 0
     conv_stage.path_launches = dict.fromkeys(PATHS, 0)
+    conv_stage.stage_launches = {}
     finish.launches = 0
     act_stats.launches = 0
     replay_graph.replays = 0

@@ -362,25 +362,27 @@ def test_video_loop_streams_frames_through_the_fused_path():
         np.testing.assert_allclose(seen[i], eager, rtol=0.08, atol=0.03)
 
 
-@pytest.mark.parametrize("k,stride,cin,window,cin_k", [
-    (9, 1, 17, True, 32), (9, 1, 16, True, 16), (3, 1, 128, False, 128),
-    (3, 2, 32, False, 32), (2, 1, 8, False, 8)])
-def test_stage_layout_picks_path_and_keeps_weights(k, stride, cin, window, cin_k):
+@pytest.mark.parametrize("k,stride,cin,path,cin_k,k_row", [
+    (9, 1, 17, "window", 18, 176), (9, 1, 16, "window", 16, 144),
+    (3, 1, 128, "halo", 128, 384), (3, 2, 32, "strided", 32, 96), (2, 1, 8, "halo", 8, 16)])
+def test_stage_layout_picks_path_and_keeps_weights(k, stride, cin, path, cin_k, k_row):
+    """A stage's path and K layout follow its geometry: a window stage's
+    taps are cin rounded up to 2 apart in K and a tap row's run pads to 16; the
+    halo and strided stages' K is (ty, tx, c); the weights come back."""
     kernel = np.random.default_rng(k + cin).standard_normal((k, k, cin, 8)).astype(np.float32)
     st = make_conv_stage("s", kernel, np.zeros(8), in_hw=(16, 16), out_hw=(16, 16),
                          stride=stride, pads=(k // 2, k // 2), epi="bias", device="cpu",
                          pack_c=384 if cin == 17 else 0)
-    assert (st.window, st.cin_k) == (window, cin_k)
-    assert st.w.shape[1] % 32 == 0 and (st.kmap is None) == window
+    assert (st.path, st.cin_k, st.k_row) == (path, cin_k, k_row)
+    assert st.w.shape[1] % 32 == 0 and st.k_real == k * k_row
+    assert not st.w[:, st.k_real:].any()
     want = _bf16(kernel).float().permute(3, 2, 0, 1)
     assert torch.equal(st.weight_oihw(), want)
-    if not window:
-        km = st.kmap[:st.k_real].numpy()
-        kk = np.arange(st.k_real)
-        assert np.array_equal(km >> 20, kk // (k * cin))
-        assert np.array_equal((km >> 10) & 1023, (kk // cin) % k)
-        assert np.array_equal(km & 1023, kk % cin)
-        assert (st.kmap[st.k_real:] == -1).all()
+    # every stage's kernel streams its weights from slices
+    assert st.wslices.dtype == torch.uint8 and st.wslices.numel() % (128 * 8) == 0
+    if path != "window":  # K = (ty * kw + tx) * cin + c
+        assert torch.equal(st.w[:, :st.k_real].float(),
+                           _bf16(kernel).float().reshape(-1, 8).T)
 
 
 def test_plain_strided_stage_is_one_conv_on_bf16_operands():

@@ -32,6 +32,7 @@ from realtime_style_transfer_torch.ops.kernels import (
     act_stats,
     conv_stage,
     make_conv_stage,
+    window_pitch,
 )
 from realtime_style_transfer_torch.ops.probe_int8 import make_inputs, probe_band, probe_mm
 from realtime_style_transfer_torch.video import stylize_video
@@ -298,7 +299,9 @@ def test_int8_weights_and_rows_match_the_jax_formula(kind):
     st, kernel, s_row = _int8_stage(kind, np.random.default_rng(61))
     q, dq, inv = _np_quantize_kernel(kernel, s_row)
     assert st.quant and st.w.dtype == torch.int8
-    assert st.cin_k == (32 if kind == "window" else st.cin) and st.w.shape[1] % 32 == 0
+    # a window pixel's pitch: cin rounded up to 4 int8; the others keep cin
+    assert st.cin_k == (window_pitch(st.cin, True) if kind == "window" else st.cin)
+    assert st.w.shape[1] % 32 == 0 and st.k_real == st.kh * st.k_row
     np.testing.assert_array_equal(st.weight_oihw().numpy(),
                                   q.astype(np.float32).transpose(3, 2, 0, 1))
     assert not st.w[:, st.k_real:].any()

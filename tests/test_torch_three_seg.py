@@ -90,7 +90,7 @@ def test_three_seg_engine_matches_port_eager_net(divider1_tiny):
 
 
 def test_three_seg_stage_geometry(divider1_tiny):
-    """c3 is a stride-2 gather stage into the bottleneck, e2 a parity-packed
+    """c3 is a stride-2 (strided path) stage into the bottleneck, e2 a parity-packed
     transpose back to full resolution; the CIN slots are the 10 residual
     convs, e0, e1, e2 and final."""
     _, variables, _, _, _ = divider1_tiny
@@ -100,7 +100,8 @@ def test_three_seg_stage_geometry(divider1_tiny):
     assert (by_name["c3"].in_shape, by_name["c3"].out_shape, by_name["c3"].stride) == \
         ((16, 32, 32), (8, 16, 32), 2)
     assert by_name["e2"].transpose and by_name["e2"].out_shape == (64, 128, 8)
-    assert by_name["final"].window and by_name["final"].cin == 8
+    assert by_name["c3"].path == "strided"
+    assert by_name["final"].path == "window" and by_name["final"].cin == 8
     assert fused._slot_channels == (8,) * 10 + (32, 16, 8, 3)
     assert fused._slot_counts[-2:] == (64 * 128,) * 2
     assert fused.n_conv_stages == 18
@@ -194,7 +195,8 @@ def test_three_seg_int8_close_to_bf16(divider1_tiny):
     scales = fused.calibrate_act_scales([packed], prepared)
     fq = _engine(variables, quant="int8", act_scales=scales)
     assert all(s.stage.quant for s in fq.steps)
-    assert fq.steps[-1].stage.cin_k == 32  # the final conv's 8 channels pad to 32
+    # the final conv's 8 int8 channels keep their pitch; a tap row of 72 pads to 96
+    assert (fq.steps[-1].stage.cin_k, fq.steps[-1].stage.k_row) == (8, 96)
     got = fq.stylize_prepacked(packed, fq.prepare_style(t(style_params))).numpy()
     err = np.abs(got - ref)
     assert err.max() < 0.06, err.max()
