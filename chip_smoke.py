@@ -108,12 +108,18 @@ Run from the repository root: ``python3 chip_smoke.py``.
    version at ``tests/test_pallas_conv.py``'s shapes, at the four launches of
    the path (the packed stem, 5x5 68->128 with the contract epilogue, and the
    packed final conv, 3x3 256->48 and 512->192, at rst-960 and rst-1920) in
-   bf16 with phase 2's limits, and once in f32 at rtol 1e-4 + atol 1e-4 (the
-   JAX f32 tests' limit); each launch timed beside its bound, the plain version
-   and ``F.conv2d`` on the same padded input.  Then 8 flagship frames, one
+   bf16 with phase 2's limits, its weights packed once (``pack_taps``) as the
+   packed path packs them, and once in f32 at rtol 1e-4 + atol 1e-4 (the JAX
+   f32 tests' limit); two calls of each give the same bits, and each call
+   takes its path (``conv_valid_matmul.path_launches``: ``wgmma`` for bf16,
+   ``f32``); each launch timed beside its bound, the plain version and
+   ``F.conv2d`` on the same padded input, by CUDA events and as the replay of
+   a CUDA graph of 20 launches (``timing.graph_ms``), and the cost of packing
+   its weights.  Then 8 flagship frames, one
    style and two (the ramp map), through ``video.stylize_video`` on a
    ``PackedTransfer`` with ``conv_backend="pallas"``: 2 ``conv_matmul``
-   launches a frame and none of the fused kernels; each frame held against the
+   launches a frame, all on the ``wgmma`` path, and none of the fused
+   kernels; each frame held against the
    eager f32 net (rtol 0.08, atol 0.03), the packed path with the kernel's
    plain version and ``FusedTransfer``'s frame on the same weights (rtol 0.05,
    atol 0.02, median < 5e-3).  Then rst-1920-120-128-17 with two styles:
@@ -213,7 +219,7 @@ def main() -> int:
     from realtime_style_transfer_torch.ops.kernels import (
         Prologue, act_stats, act_stats_plain, conv_stage, conv_stage_plain, finish,
         finish_plain, make_conv_stage, unpack_frame)
-    from realtime_style_transfer_torch.timing import graph_ms
+    from realtime_style_transfer_torch.timing import device_share, graph_ms
     from realtime_style_transfer_torch.video import choose_path, stylize_video
     from realtime_style_transfer_torch.weights import to_flax
 
@@ -1241,7 +1247,12 @@ def main() -> int:
 
     def check_conv_matmul(label, padded, k, cout, dtype=bf16, epilogue="none", timed=False):
         """conv_matmul on a seeded (Hp, Wp, Cin) image against its plain
-        version; timed beside its bound, the plain version and F.conv2d."""
+        version, with its weights packed once as the packed path packs them
+        (bf16: Cin zero-padded to a multiple of 8; the wrapper pads the
+        image's channels to match, except in a timed case, which is handed
+        the image padded as the packed path pads it); two calls bit-equal;
+        its launches by path (bf16: wgmma); timed beside its bound, the plain
+        version and F.conv2d, by CUDA events and by graph replay."""
         cin = padded[2]
         x = torch.randn(padded, generator=gen, device=dev).to(dtype)
         w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
@@ -1249,29 +1260,50 @@ def main() -> int:
         epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
                    scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
                    shift=torch.randn(cout, generator=gen, device=dev) * 0.1, epilogue=epilogue)
-        got = cmm(x, w, **epi)
+        kern = conv_matmul.pack_taps(w) if dtype == bf16 else w
+        xk = F.pad(x, (0, kern.kernel.shape[2] - cin)) if timed and dtype == bf16 else x
+        conv_matmul.reset_launch_counts()
+        got = cmm(xk, kern, **epi)
+        again = cmm(xk, kern, **epi)
+        paths = dict(cmm.path_launches)
         want = conv_matmul.conv_valid_matmul_plain(x, w, **epi)
         torch.cuda.synchronize()
+        path = conv_matmul.path_of(dtype)
         print(f"conv_matmul {label}: {tuple(padded)} x {k}x{k} -> {tuple(got.shape)} "
-              f"{str(dtype)[6:]} epilogue={epilogue}")
+              f"{str(dtype)[6:]} epilogue={epilogue}"
+              + (f" (bn {kern.plan.bn}, rw {kern.plan.rw}, {kern.plan.nchunks} chunk(s), "
+                 f"K {kern.plan.k})" if dtype == bf16 else ""))
         if dtype == bf16:
             err = close(f"conv_matmul {label}", got, want, 1.6e-2, 1e-2)
         else:
             err = close_f32(f"conv_matmul {label}", got, want)
-        row = dict(err=err)
+        same = torch.equal(got, again)
+        print(f"  two calls bit-equal {'ok' if same else 'FAIL'}; launches by path {paths} "
+              f"(want 2 on {path}) {'ok' if paths[path] == 2 == sum(paths.values()) else 'FAIL'}")
+        if not same:
+            failures.append(f"conv_matmul {label} repeat")
+        if paths[path] != 2 or sum(paths.values()) != 2:
+            failures.append(f"conv_matmul {label} path")
+        row = dict(err=err, path=path)
         if timed:
             xp = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
             wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             ops, n_bytes = conv_matmul_work(*padded[:2], k, k, cin, cout, w.element_size())
             bound, by = bound_ms(ops, n_bytes, "bf16" if dtype == bf16 else "f32")
-            row.update(ms=cuda_ms(lambda: cmm(x, w, **epi), 20),
+            row.update(ms=cuda_ms(lambda: cmm(xk, kern, **epi), 20),
+                       device_ms=graph_ms(lambda: cmm(xk, kern, **epi)),
                        plain_ms=cuda_ms(lambda: conv_matmul.conv_valid_matmul_plain(x, w, **epi), 3),
-                       library_ms=cuda_ms(lambda: F.conv2d(xp, wl), 20), bound=bound, by=by)
-            note(f"conv_matmul {label}: kernel {row['ms']:.4f} ms "
-                 f"({ops / row['ms'] / 1e9:.1f} TFLOP/s, {bound / row['ms']:.1%} of the bound), "
-                 f"plain {row['plain_ms']:.4f} ms, F.conv2d {str(dtype)[6:]} VALID "
-                 f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-                 f"{n_bytes / 1e6:.1f} MB)")
+                       library_ms=cuda_ms(lambda: F.conv2d(xp, wl), 20),
+                       library_device_ms=graph_ms(lambda: F.conv2d(xp, wl)), bound=bound, by=by)
+            if dtype == bf16:
+                row["pack_ms"] = cuda_ms(lambda: conv_matmul.pack_taps(w), 3)
+            note(f"conv_matmul {label}: kernel {row['ms']:.4f} ms (graph {row['device_ms']:.4f}; "
+                 f"{ops / row['device_ms'] / 1e9:.1f} TFLOP/s, {bound / row['device_ms']:.1%} of "
+                 f"the bound), plain {row['plain_ms']:.4f} ms, F.conv2d {str(dtype)[6:]} VALID "
+                 f"{row['library_ms']:.4f} ms (graph {row['library_device_ms']:.4f}), bound "
+                 f"{bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)"
+                 + (f"; packing the weights once {row['pack_ms']:.4f} ms" if "pack_ms" in row
+                    else ""))
         return row
 
     # tests/test_pallas_conv.py's shapes (padded input, k, cout) and its epilogue case
@@ -1280,7 +1312,8 @@ def main() -> int:
             ("test (16, 16, 4) k3", (18, 18, 4), 3, 6, "none"),
             ("test (8, 24, 17) k9", (16, 32, 17), 9, 6, "none"),
             ("test contract (10, 12, 4) k3", (10, 12, 4), 3, 6, "contract"),
-            ("test bias, cout 7", (14, 18, 5), 3, 7, "bias")):
+            ("test bias, cout 7", (14, 18, 5), 3, 7, "bias"),
+            ("1x1, Cin 20 (a lone plane on the zero pixels)", (19, 37, 20), 1, 16, "none")):
         check_conv_matmul(label, padded, k, cout, epilogue=epilogue)
     xs = torch.randn((2, 12, 16, 5), generator=gen, device=dev).to(bf16)
     ws = (torch.randn((3, 3, 5, 7), generator=gen, device=dev) * 0.2).to(bf16)
@@ -1343,16 +1376,18 @@ def main() -> int:
 
     def run_packed_video(label, mdl, engine, styles_in, frs, weights_map=None):
         """``stylize_video`` on the packed engine with conv_matmul: 2 launches
-        a frame (the stem and the final conv), the warm-up frame included."""
+        a frame (the stem and the final conv), the warm-up frame included,
+        all on the wgmma path."""
         res = {}
-        cmm.launches = 0
+        conv_matmul.reset_launch_counts()
         kernels.reset_launch_counts()
         run_p = stylize_video(mdl, engine, styles_in, frs, lambda i, fr: res.__setitem__(i, fr),
                               style_weights=weights_map, conv_backend="pallas")
         torch.cuda.synchronize()
-        counts = {"conv_matmul": cmm.launches, "conv_stage": kernels.conv_stage.launches,
-                  "finish": kernels.finish.launches}
-        want = {"conv_matmul": 2 * (len(frs) + 1), "conv_stage": 0, "finish": 0}
+        counts = {"conv_matmul": cmm.launches, "conv_matmul wgmma": cmm.path_launches["wgmma"],
+                  "conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches}
+        want = {"conv_matmul": 2 * (len(frs) + 1), "conv_matmul wgmma": 2 * (len(frs) + 1),
+                "conv_stage": 0, "finish": 0}
         print(f"{label} launches: {counts}, expected {want} ({len(frs)} frames and a warm-up, "
               f"2 conv_matmul a frame)")
         if counts != want:
@@ -1362,6 +1397,7 @@ def main() -> int:
     packed_engine = PackedTransfer(variables, plan)
     run_ps, res_ps, launches_ps = run_packed_video("packed", model, packed_engine, style_image,
                                                    frames)
+    path_launches_ps = dict(cmm.path_launches)
     sp_ps = run_ps["style_params"]
     errs_ps = check_packed_frames("packed", packed_engine, model.transfer, res_ps, frames, sp_ps,
                                   fused_engine=fused, fused_prep=fused.prepare_style(sp_ps))
@@ -1442,31 +1478,6 @@ def main() -> int:
     for label, ms_ in frame_times.items():
         note(f"frame, {label} ({'fused stylize_prepacked, pack on the card' if 'fused' in label else 'PackedTransfer, content in, (1, H, W, 3) f32 out'}): "
              f"{ms_:.4f} ms")
-    def device_share(fn, n=5):
-        """torch.profiler over n calls of ``fn``: (CUDA activities, their
-        summed device time, the host wall time with the profiler on) in ms,
-        or the reason it measured nothing."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        except (RuntimeError, AttributeError) as exc:  # a measurement, not a check
-            return f"not measured: {str(exc)[:120]}"
-        if not acts:
-            return "not measured: the profiler recorded no device activity"
-        busy = sum(e.time_range.elapsed_us() for e in acts) / 1e3
-        return dict(activities=len(acts) / n, busy_ms=busy / n, wall_ms=wall / n,
-                    idle_share=1.0 - busy / wall)
-
     with torch.no_grad():
         profiles = {
             "packed pallas": device_share(lambda: packed_engine(content_p, sp_ps,
@@ -1805,18 +1816,30 @@ def main() -> int:
         pair1 = [launch_rows["rst1920 stem"], launch_rows["rst1920 final"]]
         return {"name": "conv_matmul", "route": "cuda", "source": f"{SOURCES}/conv_matmul.cu",
                 "replaces": f"{CONV_MATMUL}:40", "launches": launches_ps,
+                "path": "wgmma", "path_launches": path_launches_ps,
                 "max_abs_err": max(r["err"] for r in launch_rows.values()),
                 "ms": sum(r["ms"] for r in pair), "plain_ms": sum(r["plain_ms"] for r in pair),
                 "bound_ms": sum(r["bound"] for r in pair), "bound_by": "operations",
                 "library_ms": sum(r["library_ms"] for r in pair),
-                "per": "one rst960 packed frame: the stem and the final conv",
+                "device_ms": sum(r["device_ms"] for r in pair),
+                "library_device_ms": sum(r["library_device_ms"] for r in pair),
+                "per": "one rst960 packed frame: the stem and the final conv (ms, library_ms: "
+                       "a wrapper call timed with CUDA events; device_ms, library_device_ms: "
+                       "a CUDA graph's replay)",
                 "library_note": "F.conv2d bf16 VALID on the same padded input",
                 "dual_launches": launches_pd, "rst1920_dual_launches": launches_p12,
                 "rst1920_ms": sum(r["ms"] for r in pair1),
                 "rst1920_plain_ms": sum(r["plain_ms"] for r in pair1),
                 "rst1920_bound_ms": sum(r["bound"] for r in pair1),
                 "rst1920_library_ms": sum(r["library_ms"] for r in pair1),
+                "rst1920_device_ms": sum(r["device_ms"] for r in pair1),
+                "rst1920_library_device_ms": sum(r["library_device_ms"] for r in pair1),
+                "launch_device_ms": {k: r["device_ms"] for k, r in launch_rows.items()},
+                "launch_library_device_ms": {k: r["library_device_ms"]
+                                             for k, r in launch_rows.items()},
+                "pack_ms": {k: r["pack_ms"] for k, r in launch_rows.items()},
                 "f32_max_abs_err": f32_row["err"], "f32_ms": f32_row["ms"],
+                "f32_device_ms": f32_row["device_ms"],
                 "launch_rows": launch_rows, "frame_ms": frame_times,
                 "frame_profile": profiles}
 

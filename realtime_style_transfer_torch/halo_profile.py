@@ -1,4 +1,5 @@
-"""Where a launch of ``csrc/conv_stage.cu`` spends its time, on one card.
+"""Where a launch of ``csrc/conv_stage.cu`` or ``csrc/conv_matmul.cu`` spends
+its time, on one card.
 
     python -m realtime_style_transfer_torch.halo_profile [ROOT ...]
 
@@ -16,7 +17,20 @@ matches its source.  Then the phases of a block, read by ``clock64`` in a
 copy of ``conv_stage.cu`` with counters added at the ``// PROFILE LAP i``
 markers of ``conv_halo_kernel`` and ``conv_window_kernel`` (warp 0, lane 0
 of each block, microseconds at the card's maximum SM clock, the median over
-the blocks).  Needs one CUDA device, ``nvcc`` and ``nvidia-smi``.
+the blocks).
+
+Then the packed path's ``conv_matmul``: each of its four launches (the
+packed stem and final conv of rst-960-120-128-17 and rst-1920-120-128-17) by
+graph replay beside each ROOT's own ``conv_valid_matmul`` (its weights packed
+by its own ``pack_taps`` where it has one; this one's input with its
+channels padded to the packed kernel's, as the packed path's ``F.pad`` pads
+them, each ROOT's as it is) and ``F.conv2d``, with the phases of a ``conv_wgmma_kernel`` block
+read the same way; then the packed frame (``PackedTransfer`` with
+``conv_backend="pallas"``) of rst-960 with one style and rst-1920 with two,
+each ROOT's engine and this one's on the same seeded variables, in turns
+ROOT, this, this, ROOT (CUDA events, the median of 5 windows of 20 frames),
+and each engine's device busy time a frame (``torch.profiler``).  Needs one
+CUDA device, ``nvcc`` and ``nvidia-smi``.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ from .ops import kernels
 from .ops.conv import pack_transpose_kernel
 from .ops.kernels import _ARGTYPES, Prologue, launch_conv_stage
 from .ops.packed_conv import pack
-from .timing import graph_ms
+from .timing import device_share, graph_ms
 
 # the phases each instrumented kernel's PROFILE LAP markers close, in order
 PHASES = {
@@ -47,6 +61,13 @@ PHASES = {
     "conv_window_kernel": ("fill + fold", "input wait", "window pass", "K loop", "epilogue",
                            "moments flush"),
 }
+# the same for conv_matmul.cu's kernel
+MATMUL_PHASES = {
+    "conv_wgmma_kernel": ("set-up", "fill wait", "K loop", "sums to shared", "epilogue"),
+}
+# the packed path's conv_matmul launches (bounds.conv_matmul_launches) and frames
+MATMUL_SPECS = ("rst-960-120-128-17", "rst-1920-120-128-17")
+FRAMES = (("rst-960-120-128-17", 1), ("rst-1920-120-128-17", 2))
 # label, path, kernel (kh, kw, cin, cout), input grid, pack input, prologue
 CASES = (
     ("stem", "window", (9, 9, 17, 32), (480, 960), True, False),
@@ -66,16 +87,18 @@ CASES = (
 
 def _kernel_span(text: str, name: str):
     """(start, end) of the body of kernel ``name`` in ``text``."""
-    head = f"{name}(const Params p) {{\n"
-    start = text.index(head) + len(head)
+    start = text.index(" {\n", text.index(f"{name}(const Params p")) + 3
     return start, text.index("\n}\n", start)
 
 
 def profiled_source(text: str) -> str:
-    """conv_stage.cu with clock64 counters in each kernel of PHASES: its
-    ``// PROFILE LAP i`` markers, in order i = 0, 1, ..., close counter i;
-    each block's warp 0 writes them to ``Params::counters``, 8 a block."""
-    for name, phases in PHASES.items():
+    """A kernel source (conv_stage.cu, conv_matmul.cu) with clock64 counters
+    in each of its kernels in PHASES or MATMUL_PHASES: its ``// PROFILE LAP
+    i`` markers, in order i = 0, 1, ..., close counter i; each block's thread
+    0 writes them to ``Params::counters``, 8 a block."""
+    for name, phases in {**PHASES, **MATMUL_PHASES}.items():
+        if f"{name}(const Params p" not in text:
+            continue
         start, end = _kernel_span(text, name)
         kernel = text[start:end]
         laps = [int(i) for i in re.findall(r"// PROFILE LAP (\d+)", kernel)]
@@ -99,8 +122,10 @@ def _build(text: str, name: str) -> ctypes.CDLL:
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
                     str(so), str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    lib.rst_conv_stage.argtypes = _ARGTYPES["rst_conv_stage"]
-    lib.rst_conv_stage.restype = ctypes.c_int
+    for fn, argtypes in _ARGTYPES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -138,27 +163,20 @@ def _stage(k, label, path, kshape, kernel, hw, pack_input, quant, dev):
                              **kw_args)
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("halo_profile: no CUDA device", file=sys.stderr)
-        return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    mhz = float(card.split(",")[-1])
-    others = {Path(root).name: load_package(root, f"_halo_profile_root{i}")
-              for i, root in enumerate(argv)}
-    # every build at once: this source, its profiled copy, each root's source
-    with ThreadPoolExecutor() as pool:
-        prof = pool.submit(_build, profiled_source((kernels.CSRC / "conv_stage.cu").read_text()),
-                           "halo_profile")
-        builds = [pool.submit(k.build, ("conv_stage.cu",)) for k in (kernels, *others.values())]
-        prof = prof.result()
-        for b in builds:
-            b.result()
+def _phases(counters: torch.Tensor, phases, mhz: float) -> str:
+    """The median over the blocks of each phase and of a block, in us."""
+    us = counters.view(-1, 8)[:, :len(phases)].double().cpu() / mhz
+    med = us.median(dim=0).values
+    return ("phases (us, median of " + f"{us.shape[0]} blocks): " + ", ".join(
+        f"{name} {float(v):.2f}" for name, v in zip(phases, med))
+        + f"; a block {float(us.sum(dim=1).median()):.2f}")
+
+
+def stage_part(prof, others, mhz: float) -> None:
+    """Each stage of CASES, bf16 and int8: its graph time beside each ROOT's
+    and ``F.conv2d``'s, and its block phases."""
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng, gen = np.random.default_rng(0), torch.Generator(device=dev).manual_seed(0)
-    print(f"card: {card}", flush=True)
     for quant in (False, True):
         for label, path, kshape, hw, pack_input, prologue in CASES:
             kh, kw, cin, _ = kshape
@@ -203,12 +221,142 @@ def main(argv) -> int:
                 launch_conv_stage(prof, x, st, out, counters, prologue=pro, stats_out=stats)
             torch.cuda.synchronize()
             phases = PHASES["conv_window_kernel" if st.path == "window" else "conv_halo_kernel"]
-            us = counters.view(-1, 8)[:, :len(phases)].double().cpu() / mhz
-            med = us.median(dim=0).values
-            row.append("phases (us, median of " + f"{us.shape[0]} blocks): " + ", ".join(
-                f"{name} {float(v):.2f}" for name, v in zip(phases, med))
-                + f"; a block {float(us.sum(dim=1).median()):.2f}")
+            row.append(_phases(counters, phases, mhz))
             print("  ".join(row), flush=True)
+
+
+def _window_ms(fn, reps: int = 10, windows: int = 3) -> float:
+    """The median over ``windows`` of the CUDA-event ms of one call, each
+    window ``reps`` calls, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def matmul_part(prof, others, mhz: float) -> None:
+    """The packed path's four conv_matmul launches beside each ROOT's and
+    F.conv2d's, with their block phases; then the packed frames in turns."""
+    from .config import ShapeConfig
+    from .models.inference import make_inference_model, plan_from_config
+    from .models.transfer_packed import PackedTransfer
+    from .ops import conv_matmul as cm
+    from .ops.bounds import conv_matmul_launches
+    from .weights import to_flax
+
+    mods = {name: importlib.import_module(k.__name__.rsplit(".", 2)[0] + ".ops.conv_matmul")
+            for name, k in others.items()}
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for spec in MATMUL_SPECS:
+        for seam, (hp, wp, k, _, cin, cout) in conv_matmul_launches(
+                plan_from_config(ShapeConfig.from_spec(spec))).items():
+            x = torch.randn((hp, wp, cin), generator=gen, device=dev).to(bf16)
+            w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
+                 / (k * k * cin) ** 0.5).to(bf16)
+            epi = dict(epilogue="none")
+            if seam == "stem":
+                epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
+                           scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
+                           shift=torch.randn(cout, generator=gen, device=dev) * 0.1,
+                           epilogue="contract")
+            taps = cm.pack_taps(w)
+            pl = taps.plan
+            xk = F.pad(x, (0, taps.kernel.shape[2] - cin))  # as the packed path pads it
+            row = [f"conv_matmul {spec} {seam} ({hp}, {wp}, {cin}) {k}x{k} -> {cout} "
+                   f"(bn {pl.bn}, rw {pl.rw}, {pl.nchunks} chunks, K {pl.k}):"]
+            row.append(f"kernel {graph_ms(lambda: cm.conv_valid_matmul(xk, taps, **epi)):.4f} ms")
+            for name, mod in mods.items():
+                kern = mod.pack_taps(w) if hasattr(mod, "pack_taps") else w
+                row.append(f"{name} {graph_ms(lambda: mod.conv_valid_matmul(x, kern, **epi)):.4f}"
+                           " ms")
+            xp = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            row.append(f"F.conv2d {graph_ms(lambda: F.conv2d(xp, wl)):.4f} ms")
+            h, w_ = hp - k + 1, wp - k + 1
+            out = torch.empty((h, w_, cout), dtype=bf16, device=dev)
+            rows = (None, None, None)
+            if seam == "stem":
+                rows = cm._epilogue_rows(cout, dev, epi["bias"], epi["scale"], epi["shift"])
+            counters = torch.zeros(pl.grid(h, w_)[0] * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                counters.zero_()
+                err = cm.launch_wgmma(prof, xk, taps, rows, out, cm.EPILOGUES[epi["epilogue"]],
+                                      counters)
+                if err:
+                    raise RuntimeError(f"profiled conv_matmul: CUDA error {err}")
+            torch.cuda.synchronize()
+            row.append(_phases(counters, MATMUL_PHASES["conv_wgmma_kernel"], mhz))
+            print("  ".join(row), flush=True)
+
+    engines = {name: importlib.import_module(
+        k.__name__.rsplit(".", 2)[0] + ".models.transfer_packed").PackedTransfer
+        for name, k in others.items()}
+    rng = np.random.default_rng(0)
+    for spec, styles in FRAMES:
+        cfg = ShapeConfig.from_spec(spec, num_styles=styles)
+        model = make_inference_model(cfg, seed=0)
+        variables = to_flax(model.transfer.state_dict())
+        plan = model.plan
+        h, w_ = plan.input_shape[:2]
+        content = torch.from_numpy(rng.random((1,) + tuple(plan.input_shape),
+                                              dtype=np.float32)).to(dev)
+        sp = torch.from_numpy(rng.random((1, styles, plan.num_style_parameters), dtype=np.float32)
+                              + 0.5).to(dev)
+        wmap = (torch.linspace(0, 1, h, device=dev)[None, :, None, None].expand(1, h, w_, 1)
+                .contiguous() if styles == 2 else None)
+        mine = PackedTransfer(variables, plan, num_styles=styles)
+        frames = {"this": lambda: mine(content, sp, wmap, conv_backend="pallas")}
+        for name, cls in engines.items():
+            eng = cls(variables, plan, num_styles=styles)
+            frames[name] = (lambda e: lambda: e(content, sp, wmap, conv_backend="pallas"))(eng)
+        with torch.no_grad():
+            for name in others:
+                turns = [(r, _window_ms(frames[r], 20, 5)) for r in (name, "this", "this", name)]
+                print(f"packed frame {spec}, {styles} style(s), turns {name}, this, this, "
+                      f"{name}: " + ", ".join(f"{r} {ms:.4f} ms" for r, ms in turns), flush=True)
+            for name, fn in frames.items():
+                busy = device_share(fn)
+                print(f"packed frame {spec}, {styles} style(s), {name}: " + (
+                    busy if isinstance(busy, str) else
+                    f"{busy['activities']:.0f} device activities, device busy "
+                    f"{busy['busy_ms']:.4f} ms of {busy['wall_ms']:.4f} ms host wall "
+                    "(profiler on)"), flush=True)
+        del model, mine, frames
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("halo_profile: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    mhz = float(card.split(",")[-1])
+    others = {Path(root).name: load_package(root, f"_halo_profile_root{i}")
+              for i, root in enumerate(argv)}
+    # every build at once: these sources, their profiled copies, each root's
+    sources = ("conv_stage.cu", "conv_matmul.cu")
+    with ThreadPoolExecutor() as pool:
+        profs = {src: pool.submit(_build, profiled_source((kernels.CSRC / src).read_text()),
+                                  f"halo_profile_{Path(src).stem}") for src in sources}
+        builds = [pool.submit(k.build, sources) for k in (kernels, *others.values())]
+        profs = {src: f.result() for src, f in profs.items()}
+        for b in builds:
+            b.result()
+    print(f"card: {card}", flush=True)
+    stage_part(profs["conv_stage.cu"], others, mhz)
+    matmul_part(profs["conv_matmul.cu"], others, mhz)
     return 0
 
 

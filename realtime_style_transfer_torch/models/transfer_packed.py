@@ -28,8 +28,10 @@ hand-written tap-matmul kernel ``csrc/conv_matmul.cu``: two launches a frame).
 The names are the JAX package's, so call sites port unchanged.
 
 :class:`PackedTransfer` assembles the packed kernels once (host loops) and
-keeps them on the device; :func:`stylize_packed` builds one when handed raw
-variables, and the video loop reuses one across frames.
+keeps them on the device, the two the tap-matmul kernel runs also packed for
+it (:meth:`..ops.packed_conv.PackedConv.with_taps`); :func:`stylize_packed`
+builds one when handed raw variables, and the video loop reuses one across
+frames.
 """
 
 from __future__ import annotations
@@ -171,10 +173,12 @@ class PackedTransfer:
             eff_scale, eff_bias = _bn_affine(params[bn_name], stats[bn_name])
             ff = fout * fout
             fused = None
+            conv = assemble_conv(kernel, stride=stride, fin=fin, fout=fout).to(dev, dtype)
             if stride == 1 and fin == fout:
                 fused = tiled_contract(bias.float(), eff_scale, eff_bias, fout, dev)
+                conv = conv.with_taps()
             self.contracts.append(_Contract(
-                assemble_conv(kernel, stride=stride, fin=fin, fout=fout).to(dev, dtype),
+                conv,
                 on_device(bias.repeat(ff)), on_device(eff_scale.repeat(ff)),
                 on_device(eff_bias.repeat(ff)), fused))
         self.residual = []
@@ -192,8 +196,9 @@ class PackedTransfer:
                 on_device(bias.repeat(fout * fout)), plan.expand_blocks[ei][0], fout))
         f_final = 2 ** plan.num_expand_blocks
         kernel, bias = conv_params(f"expand_{plan.num_expand_blocks}_conv")
+        final = assemble_conv(kernel, stride=1, fin=f_final, fout=f_final).to(dev, dtype)
         self.final = _Expand(
-            assemble_conv(kernel, stride=1, fin=f_final, fout=f_final).to(dev, dtype),
+            final.with_taps(),
             on_device(bias.repeat(f_final * f_final)), plan.expand_blocks[-1][0], f_final)
 
     def __call__(self, content: torch.Tensor, style_params: torch.Tensor,

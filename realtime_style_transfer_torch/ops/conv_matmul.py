@@ -9,15 +9,28 @@ or ``contract`` = ``relu(relu(acc + bias) * scale + shift)``), and stores
 x.dtype (bf16 or f32).  The packed path runs it at its stride-1 seams
 (:mod:`.packed_conv`).
 
+Two paths, chosen by the input's type: ``wgmma`` (bf16: ``conv_wgmma_kernel``,
+both MMA operands in shared memory, the input tile plane-major and both
+operands streamed by TMA; :func:`tap_plan` lays them out) and ``f32`` (an FMA
+kernel that holds JAX's f32 tolerance).  The bf16 path's weights are packed
+once by :func:`pack_taps` into a :class:`TapWeights`, Cin zero-padded to
+a multiple of 8 (the input comes in TMA boxes of 8 channels);
+:class:`PackedTransfer <..models.transfer_packed.PackedTransfer>` keeps them on its
+:class:`.packed_conv.PackedConv` and pads its input's channels in the same
+``F.pad`` as its pixels.  A raw HWIO kernel handed to
+:func:`conv_valid_matmul` is packed on every call, and an input whose Cin is
+not a multiple of 8 is zero-padded to the packed kernel's.
+
 On a CPU tensor :func:`conv_valid_matmul` runs :func:`conv_valid_matmul_plain`
 (the same tap matmuls in f32, the same epilogue, one rounding to x.dtype); on
 a CUDA tensor it launches the kernel or raises.  ``conv_valid_matmul.launches``
-counts kernel launches.
+counts kernel launches, ``conv_valid_matmul.path_launches`` splits them by path.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,13 +38,229 @@ import torch.nn.functional as F
 from . import kernels
 
 EPILOGUES = {"none": 0, "bias": 1, "contract": 2}
-MAX_TAPS_PER_AXIS = 15  # the widest bf16 kernel whose input tile fits Hopper's shared memory
+PATHS = ("wgmma", "f32")
+MAX_TAPS_PER_AXIS = 15  # the widest bf16 kernel the wgmma path's plan serves
+
+# csrc/conv_matmul.cu's constants
+RING = 4            # weight slices in shared memory
+SLICE_BYTES = 128   # bytes of K a slice: 4 wgmma k16 steps
+KSTEPS = SLICE_BYTES // 32
+BLOCK_W = 16        # output columns of a block (BW): two 8 x 8 m64 tiles
+MAX_DYN_BYTES = 226 * 1024  # a block's dynamic shared memory cap
+STEP_FIELD = 0x3FFF
+STEP_NEW_CHUNK = 28
+CHUNK_PLANES = 8     # planes (of 8 channels) a chunk of a wide input
+SPLIT_PLANES = 5     # inputs of at most this many planes load in one chunk ...
+ONE_CHUNK_PLANES = 12  # ... and of at most this many in two halves
+# (bn, rw) instantiations: BN output columns a block, RW m64 tiles a warpgroup
+BLOCK_N = (8, 16, 32, 48, 64, 96, 128, 192, 256)
+ROWS = {8: 2, 16: 2, 32: 2, 48: 2, 64: 2, 96: 2, 128: 1, 192: 1, 256: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class TapPlan:
+    """How ``conv_wgmma_kernel`` runs a (kh, kw, cin, cout) kernel.
+
+    A block owns ``8 * rw`` output rows x ``BLOCK_W`` columns and all ``bn``
+    columns of one column block.  Its input tile, ``th x tw`` pixels, lies
+    in shared memory plane-major: ``planes`` planes of 8 channels, each
+    ``plane_px`` pixels of 16 bytes (the tile's, then zeros), loaded
+    ``cp`` planes a chunk into ``nbuf`` buffers.  ``steps`` lists the wgmma
+    k16 steps in K order: for each, its step word and the two (tap, plane)
+    pairs whose 8 channels it multiplies (``None``: zero weights).
+    """
+
+    kh: int
+    kw: int
+    cin: int
+    cout: int
+    bn: int
+    rw: int
+    th: int
+    tw: int
+    planes: int
+    plane_px: int
+    cp: int
+    nchunks: int
+    steps: Tuple[Tuple[int, Optional[Tuple[int, int]], Optional[Tuple[int, int]]], ...]
+
+    @property
+    def nbuf(self) -> int:
+        """Chunk buffers: two where Cin comes in more than one chunk."""
+        return 1 if self.nchunks == 1 else 2
+
+    @property
+    def nk(self) -> int:
+        """Weight slices a column block."""
+        return len(self.steps) // KSTEPS
+
+    @property
+    def k(self) -> int:
+        """K of the packed product: 16 a step."""
+        return 16 * len(self.steps)
+
+    @property
+    def col_blocks(self) -> int:
+        return -(-self.cout // self.bn)
+
+    def grid(self, h: int, w: int) -> Tuple[int, int]:
+        """conv_matmul.cu's launch grid for an (h, w) output."""
+        return -(-h // (8 * self.rw)) * -(-w // BLOCK_W), self.col_blocks
+
+    @property
+    def chunk_bytes(self) -> int:
+        """Bytes of a chunk buffer, padded to 128 (the ring after them is
+        128-byte aligned)."""
+        return -(-self.cp * self.plane_px * 16 // 128) * 128
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's dynamic shared memory (conv_matmul.cu's wgmma_bytes)."""
+        fill = self.nbuf * self.chunk_bytes + RING * self.bn * SLICE_BYTES
+        return max(fill, 8 * self.rw * BLOCK_W * (self.bn + 4) * 4)
+
+
+def _chunk_steps(kh: int, kw: int, tw: int, npix: int, plane_px: int, p0: int, pc: int):
+    """The k16 steps of one chunk (planes p0 .. p0 + pc - 1): each tap's
+    planes in pairs; an odd chunk pairs its last plane across consecutive
+    taps (the second core matrix one tap's pixel offset further: LBO).
+
+    A core matrix with zero weights still meets its pixels in the MMA (0 x
+    Inf is NaN), so it reads pixels of the same outputs' receptive field: a
+    lone last tap takes the tap before it as its zero first half, a padding
+    step repeats the chunk's first step with zero weights, and a 1x1
+    kernel's lone plane pairs with the zero pixels after its tile (``npix``
+    on, inside a plane of ``plane_px`` >= 2 * npix)."""
+    steps = []
+    taps = [(ty, tx) for ty in range(kh) for tx in range(kw)]
+    shift = [(ty * tw + tx) * 16 for ty, tx in taps]
+    plane, last_tap = plane_px * 16, len(taps) - 1
+    for t in range(len(taps)):
+        for j in range(pc // 2):
+            steps.append((2 * j * plane + shift[t], plane, (t, p0 + 2 * j), (t, p0 + 2 * j + 1)))
+    if pc % 2:
+        last, lp = (pc - 1) * plane, p0 + pc - 1
+        for t in range(0, last_tap, 2):
+            steps.append((last + shift[t], shift[t + 1] - shift[t], (t, lp), (t + 1, lp)))
+        if len(taps) == 1:
+            steps.append((last, npix * 16, (0, lp), None))
+        elif len(taps) % 2:
+            steps.append((last + shift[last_tap - 1], shift[last_tap] - shift[last_tap - 1],
+                          None, (last_tap, lp)))
+    while len(steps) % KSTEPS:
+        steps.append((steps[0][0], steps[0][1], None, None))
+    return steps
+
+
+def tap_plan(kh: int, kw: int, cin: int, cout: int) -> TapPlan:
+    """The wgmma path's plan for a (kh, kw, cin, cout) kernel: the column
+    block width ``bn`` (Cout rounded up to an instantiated wgmma N, 256 a
+    column block above that), the block's tile, the chunking of Cin into
+    planes and the step table."""
+    if max(kh, kw) > MAX_TAPS_PER_AXIS:
+        raise ValueError(f"conv_valid_matmul: a {kh}x{kw} kernel's input tile exceeds "
+                         f"shared memory (at most {MAX_TAPS_PER_AXIS} taps an axis)")
+    bn = next(b for b in BLOCK_N if b >= min(cout, BLOCK_N[-1]))
+    rw = ROWS[bn]
+    th, tw = 8 * rw + kh - 1, BLOCK_W + kw - 1
+    npix = th * tw
+    # a multiple of 8 (TMA boxes into 128-byte aligned planes); a 1x1 kernel
+    # keeps as many zero pixels after its tile as the tile has (_chunk_steps)
+    plane_px = -(-npix // 8) * 8 * (2 if kh * kw == 1 else 1)
+    planes = -(-cin // 8)
+    ring = RING * bn * SLICE_BYTES
+    # one chunk for a narrow input; two halves up to ONE_CHUNK_PLANES (the
+    # stem), so the second loads under the first one's MMAs; else chunks of
+    # CHUNK_PLANES (the finals); fewer planes a chunk where they do not fit
+    cp = planes if planes <= SPLIT_PLANES else \
+        -(-planes // 2) if planes <= ONE_CHUNK_PLANES else CHUNK_PLANES
+
+    def buffers(c):
+        return (1 if c == planes else 2) * -(-c * plane_px * 16 // 128) * 128
+
+    if buffers(cp) + ring > MAX_DYN_BYTES:
+        cp = next((c for c in (4, 2, 1) if c < cp and buffers(c) + ring <= MAX_DYN_BYTES), None)
+        if cp is None:
+            raise ValueError(f"conv_valid_matmul: no chunking of a {kh}x{kw} tile fits "
+                             "shared memory")
+    nchunks = -(-planes // cp)
+    steps = []
+    for c in range(nchunks):
+        chunk = _chunk_steps(kh, kw, tw, npix, plane_px, c * cp, min(cp, planes - c * cp))
+        for i, (a_off, lbo, first, second) in enumerate(chunk):
+            word = (a_off // 16) | ((lbo // 16) << 14) | ((i == 0) << STEP_NEW_CHUNK)
+            steps.append((word, first, second))
+    return TapPlan(kh, kw, cin, cout, bn, rw, th, tw, planes, plane_px, cp, nchunks,
+                   tuple(steps))
+
+
+def step_weights(kernel: torch.Tensor, plan: TapPlan) -> torch.Tensor:
+    """The (Cout, K) matrix the steps multiply: columns 16s .. 16s + 7 of step
+    s hold the weights of its first (tap, plane) pair's 8 channels, 16s + 8
+    .. 16s + 15 its second's; zeros past Cin and for a missing pair."""
+    kh, kw, cin, cout = kernel.shape
+    cin8 = 8 * plan.planes
+    flat = kernel.new_zeros((kh * kw, cin8, cout))
+    flat[:, :cin] = kernel.reshape(kh * kw, cin, cout)
+    flat = torch.cat([flat.reshape(kh * kw * cin8, cout), kernel.new_zeros((1, cout))])
+    zero = kh * kw * cin8
+    idx = []
+    for _, first, second in plan.steps:
+        for pair in (first, second):
+            idx.extend([zero] * 8 if pair is None else
+                       range(pair[0] * cin8 + 8 * pair[1], pair[0] * cin8 + 8 * pair[1] + 8))
+    return flat[torch.tensor(idx, device=kernel.device)].t().contiguous()
+
+
+class TapWeights(NamedTuple):
+    """A bf16 HWIO kernel packed for the wgmma path: its plan (``plan.cin``
+    the kernel's own Cin), its (Cout, K) step matrix as weight slices
+    (:func:`.kernels.halo_slices`: for each column block of ``bn`` and each
+    128 bytes of K, bn x 128 bytes in wgmma's core-matrix order) and the
+    step words, all on the kernel's device; ``kernel`` is the HWIO tensor
+    (the plain version's), its Cin zero-padded to a multiple of 8."""
+
+    kernel: torch.Tensor
+    plan: TapPlan
+    slices: torch.Tensor   # uint8
+    steps: torch.Tensor    # int32 step words
+
+
+def pack_taps(kernel: torch.Tensor) -> TapWeights:
+    """Pack a bf16 HWIO kernel for :func:`conv_valid_matmul`: done once, at
+    engine assembly, by :meth:`.packed_conv.PackedConv.with_taps`."""
+    if kernel.ndim != 4:
+        raise ValueError(f"want an HWIO kernel (kh, kw, Cin, Cout), got {tuple(kernel.shape)}")
+    kh, kw, cin, cout = kernel.shape
+    plan = tap_plan(kh, kw, cin, cout)
+    slices = kernels.halo_slices(step_weights(kernel.to(torch.bfloat16), plan), plan.bn)
+    steps = torch.tensor([w for w, _, _ in plan.steps], dtype=torch.int32,
+                         device=kernel.device)
+    if cin % 8:
+        kernel = F.pad(kernel, (0, 0, 0, 8 * plan.planes - cin))
+    return TapWeights(kernel, plan, slices, steps)
+
+
+def _operands(x: torch.Tensor, kernel: Kernel):
+    """x and the HWIO kernel it is multiplied by: a TapWeights' (Cin padded
+    to a multiple of 8), x's channels zero-padded to match where it has the
+    kernel's own Cin."""
+    if not isinstance(kernel, TapWeights):
+        return x, kernel
+    cin8 = kernel.kernel.shape[2]
+    if x.ndim == 3 and x.shape[2] == kernel.plan.cin < cin8:
+        x = F.pad(x, (0, cin8 - x.shape[2]))
+    return x, kernel.kernel
 
 
 def _epilogue_rows(cout: int, device, bias, scale, shift):
     """bias, scale and shift as (cout,) f32 rows; missing ones are zeros, as
-    the JAX function passes them."""
+    the JAX function passes them.  A row that already is one is used as it
+    is (PackedTransfer keeps its rows on the device)."""
     def row(v):
+        if isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.device == device \
+                and v.shape == (cout,) and v.is_contiguous():
+            return v
         if v is None:
             return torch.zeros(cout, dtype=torch.float32, device=device)
         return torch.as_tensor(v).detach().to(device, torch.float32).reshape(cout).contiguous()
@@ -60,12 +289,22 @@ def _shapes(x: torch.Tensor, kernel: torch.Tensor, epilogue: str):
     return h, w, cout
 
 
-def conv_valid_matmul_plain(x: torch.Tensor, kernel: torch.Tensor, *,
+Kernel = Union[torch.Tensor, TapWeights]
+
+
+def path_of(dtype: torch.dtype) -> str:
+    """The kernel path an input of ``dtype`` takes: ``wgmma`` (bf16) or
+    ``f32``."""
+    return "f32" if dtype == torch.float32 else "wgmma"
+
+
+def conv_valid_matmul_plain(x: torch.Tensor, kernel: Kernel, *,
                             bias=None, scale=None, shift=None,
                             epilogue: str = "none") -> torch.Tensor:
     """The plain version of :func:`conv_valid_matmul`: the kh*kw tap matmuls
     on f32 copies of the operands accumulated in f32 (each product of two
     bf16 values is exact in f32), then the f32 epilogue, cast to x.dtype."""
+    x, kernel = _operands(x, kernel)
     h, w, cout = _shapes(x, kernel, epilogue)
     kh, kw, cin, _ = kernel.shape
     xf, kf = x.float(), kernel.float()
@@ -77,21 +316,27 @@ def conv_valid_matmul_plain(x: torch.Tensor, kernel: torch.Tensor, *,
     return _apply_epilogue(acc, epilogue, *rows).reshape(h, w, cout).to(x.dtype)
 
 
-def conv_valid_matmul(x: torch.Tensor, kernel: torch.Tensor, *,
+def conv_valid_matmul(x: torch.Tensor, kernel: Kernel, *,
                       bias: Optional[torch.Tensor] = None,
                       scale: Optional[torch.Tensor] = None,
                       shift: Optional[torch.Tensor] = None,
                       epilogue: str = "none") -> torch.Tensor:
     """VALID stride-1 conv of the pre-padded single image ``x`` (Hp, Wp, Cin)
     by the HWIO ``kernel`` (kh, kw, Cin, Cout) of the same dtype (bf16 or
-    f32) -> (Hp-kh+1, Wp-kw+1, Cout) in x.dtype, with the f32 ``epilogue``
-    (``none``, ``bias`` or ``contract``; bias, scale and shift are (Cout,)
-    rows, zeros where not given)."""
+    f32), or a bf16 one packed by :func:`pack_taps` -> (Hp-kh+1, Wp-kw+1,
+    Cout) in x.dtype, with the f32 ``epilogue`` (``none``, ``bias`` or
+    ``contract``; bias, scale and shift are (Cout,) rows, zeros where not
+    given)."""
     if x.device.type == "cpu":
         return conv_valid_matmul_plain(x, kernel, bias=bias, scale=scale, shift=shift,
                                        epilogue=epilogue)
     if x.device.type != "cuda":
         raise ValueError(f"conv_valid_matmul runs on CUDA or the CPU, not {x.device}")
+    if x.dtype == torch.bfloat16 and isinstance(kernel, torch.Tensor):
+        _shapes(x, kernel, epilogue)  # before pack_taps pads Cin
+        kernel = pack_taps(kernel)
+    taps = kernel if isinstance(kernel, TapWeights) else None
+    x, kernel = _operands(x, kernel)
     h, w, cout = _shapes(x, kernel, epilogue)
     hp, wp, cin = x.shape
     kh, kw = kernel.shape[:2]
@@ -102,29 +347,61 @@ def conv_valid_matmul(x: torch.Tensor, kernel: torch.Tensor, *,
                          f"{kernel.dtype} on {kernel.device}")
     if not (x.is_contiguous() and kernel.is_contiguous()):
         raise ValueError("conv_valid_matmul: want contiguous x and kernel")
-    if x.dtype == torch.bfloat16 and max(kh, kw) > MAX_TAPS_PER_AXIS:
-        raise ValueError(f"conv_valid_matmul: a {kh}x{kw} kernel's input tile exceeds "
-                         f"shared memory (at most {MAX_TAPS_PER_AXIS} taps an axis)")
-    rows = _epilogue_rows(cout, x.device, bias, scale, shift) if epilogue != "none" \
-        else (None, None, None)
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("conv_valid_matmul: a bf16 x comes by TMA and must start 16-byte "
+                         "aligned")
+    rows = (None, None, None)
+    if epilogue != "none":
+        rows = _epilogue_rows(cout, x.device, bias, scale, shift)
+        if epilogue == "bias":
+            rows = (rows[0], None, None)
     out = torch.empty((h, w, cout), dtype=x.dtype, device=x.device)
-    err = kernels._lib("conv_matmul.cu").rst_conv_matmul(
-        kernels._ptr(x), kernels._ptr(kernel), *(kernels._ptr(r) for r in rows),
-        kernels._ptr(out), hp, wp, cin, kh, kw, cout, EPILOGUES[epilogue],
-        int(x.dtype == torch.float32), kernels._stream(x))
+    lib = kernels._lib("conv_matmul.cu")
+    path = path_of(x.dtype)
+    if path == "f32":
+        err = lib.rst_conv_matmul_f32(
+            kernels._ptr(x), kernels._ptr(kernel), *(kernels._ptr(r) for r in rows),
+            kernels._ptr(out), hp, wp, cin, kh, kw, cout, EPILOGUES[epilogue],
+            kernels._stream(x))
+    else:
+        err = launch_wgmma(lib, x, taps, rows, out, EPILOGUES[epilogue])
     if err:
         raise RuntimeError(f"conv_valid_matmul: CUDA error {err} at launch")
     conv_valid_matmul.launches += 1
+    conv_valid_matmul.path_launches[path] += 1
     return out
 
 
 conv_valid_matmul.launches = 0
+conv_valid_matmul.path_launches = dict.fromkeys(PATHS, 0)  # the launches by path
 
 
-def conv_same_batched(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def launch_wgmma(lib, x: torch.Tensor, taps: TapWeights, rows, out: torch.Tensor, epi: int,
+                 counters: Optional[torch.Tensor] = None) -> int:
+    """One launch of ``rst_conv_matmul`` from ``lib`` (the built source, or
+    halo_profile.py's copy with clock64 counters); returns its CUDA error."""
+    pl = taps.plan
+    hp, wp, cin = x.shape
+    return lib.rst_conv_matmul(
+        kernels._ptr(x), kernels._ptr(taps.slices), kernels._ptr(taps.steps),
+        *(kernels._ptr(r) for r in rows), kernels._ptr(out), kernels._ptr(counters),
+        hp, wp, cin, pl.kh, pl.kw, pl.cout, epi, pl.bn, pl.rw, pl.nk, pl.cp, pl.nchunks,
+        pl.plane_px, kernels._stream(x))
+
+
+def reset_launch_counts() -> None:
+    conv_valid_matmul.launches = 0
+    conv_valid_matmul.path_launches = dict.fromkeys(PATHS, 0)
+
+
+def conv_same_batched(x: torch.Tensor, kernel: Kernel) -> torch.Tensor:
     """SAME stride-1 conv on (B, H, W, Cin) via :func:`conv_valid_matmul`:
-    pads once (``(k-1)//2`` before, the rest after), one call a batch item."""
-    kh, kw = kernel.shape[:2]
+    pads once (``(k-1)//2`` before, the rest after; a packed kernel's Cin
+    padding too), one call a batch item (a raw bf16 kernel on the card is
+    packed once for all of them)."""
+    if x.is_cuda and isinstance(kernel, torch.Tensor) and kernel.dtype == torch.bfloat16:
+        kernel = pack_taps(kernel)
+    kh, kw, cin = (kernel.kernel if isinstance(kernel, TapWeights) else kernel).shape[:3]
     pb_y, pb_x = (kh - 1) // 2, (kw - 1) // 2
-    xp = F.pad(x, (0, 0, pb_x, kw - 1 - pb_x, pb_y, kh - 1 - pb_y))
+    xp = F.pad(x, (0, max(cin - x.shape[3], 0), pb_x, kw - 1 - pb_x, pb_y, kh - 1 - pb_y))
     return torch.stack([conv_valid_matmul(xp[i], kernel) for i in range(xp.shape[0])])

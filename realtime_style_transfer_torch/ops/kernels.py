@@ -89,7 +89,8 @@ _ARGTYPES = {
     "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
-    "rst_conv_matmul": [_P] * 6 + [_I] * 8 + [_P],
+    "rst_conv_matmul": [_P] * 8 + [_I] * 13 + [_P],
+    "rst_conv_matmul_f32": [_P] * 6 + [_I] * 7 + [_P],
     "rst_probe_smem": [_I] * 4 + [_P] * 5,
     "rst_cin_stats": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "rst_cin_normalize": [_P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _P],

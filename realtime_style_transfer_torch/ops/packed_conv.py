@@ -26,13 +26,16 @@ the JAX package routes it; every other conv is one library ``F.conv2d``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .conv import _axis_classes
+
+if TYPE_CHECKING:
+    from .conv_matmul import TapWeights
 
 BACKENDS = ("xla", "pallas")
 
@@ -184,6 +187,7 @@ class PackedConv(NamedTuple):
     pads_x: Tuple[int, int]         # the same for columns
     s_packed: int                   # packed-space stride
     scale: Tuple[int, int]          # packed out dim = packed in dim * scale[0] // scale[1]
+    taps: Optional["TapWeights"] = None  # ``weight`` packed for the tap-matmul kernel (with_taps)
 
     @staticmethod
     def make(weight: torch.Tensor, pads_y, pads_x, s_packed: int, scale) -> "PackedConv":
@@ -193,6 +197,15 @@ class PackedConv(NamedTuple):
     def to(self, device, dtype) -> "PackedConv":
         return PackedConv.make(self.weight.to(device, dtype), self.pads_y, self.pads_x,
                                self.s_packed, self.scale)
+
+    def with_taps(self) -> "PackedConv":
+        """This conv with its bf16 weight packed once for the tap-matmul
+        kernel (:func:`.conv_matmul.pack_taps`), which the ``pallas``
+        backend then launches without repacking it each frame."""
+        from .conv_matmul import pack_taps  # conv_matmul imports kernels, which imports this
+        if self.weight.dtype != torch.bfloat16 or self.s_packed != 1:
+            return self
+        return self._replace(taps=pack_taps(self.weight))
 
     def out_hw(self, hp: int, wp: int) -> Tuple[int, int]:
         num, den = self.scale
@@ -212,20 +225,26 @@ def assemble_conv_transpose(kernel, *, fin: int, fout: int) -> PackedConv:
     return PackedConv.make(pk, pads_y, pads_x, s_packed, (2 * fin, fout))
 
 
-def _padded(p: torch.Tensor, pc: PackedConv):
-    """``p`` padded for the VALID conv of ``pc``, and the packed output size."""
-    _, hp, wp, _ = p.shape
+def _padded(p: torch.Tensor, pc: PackedConv, cin: Optional[int] = None):
+    """``p`` padded for the VALID conv of ``pc`` (its channels zero-padded
+    to ``cin`` where given), and the packed output size."""
+    _, hp, wp, c = p.shape
     hp_out, wp_out = pc.out_hw(hp, wp)
     pb_y, pa_y = _pads(*pc.pads_y, pc.s_packed, hp, hp_out)
     pb_x, pa_x = _pads(*pc.pads_x, pc.s_packed, wp, wp_out)
-    return F.pad(p, (0, 0, pb_x, pa_x, pb_y, pa_y)), hp_out, wp_out
+    return F.pad(p, (0, (cin or c) - c, pb_x, pa_x, pb_y, pa_y)), hp_out, wp_out
 
 
-def _tap_matmuls(pp, pc, hp_out, wp_out, matmul, **epilogue) -> torch.Tensor:
+def _tap_matmuls(p, pc, matmul, **epilogue) -> torch.Tensor:
+    """One ``matmul`` a batch item on ``p`` padded for ``pc``: on its packed
+    taps where it has them, the input's channels padded in the same
+    ``F.pad`` to the taps' Cin (a multiple of 8)."""
     if matmul is None:
         # imported here: conv_matmul needs kernels, which imports pack / unpack from here
         from .conv_matmul import conv_valid_matmul as matmul
-    out = torch.stack([matmul(pp[i], pc.weight, **epilogue) for i in range(pp.shape[0])])
+    kernel = pc.weight if pc.taps is None else pc.taps
+    pp, hp_out, wp_out = _padded(p, pc, None if pc.taps is None else pc.taps.kernel.shape[2])
+    out = torch.stack([matmul(pp[i], kernel, **epilogue) for i in range(pp.shape[0])])
     return out[:, :hp_out, :wp_out, :]
 
 
@@ -239,9 +258,9 @@ def run_packed_conv(p: torch.Tensor, pc: PackedConv, *, backend: str = "xla",
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "pallas" and pc.s_packed == 1 and pc.out_hw(*p.shape[1:3])[0] % 2 == 0:
+        return _tap_matmuls(p, pc, matmul)
     pp, hp_out, wp_out = _padded(p, pc)
-    if backend == "pallas" and pc.s_packed == 1 and hp_out % 2 == 0:
-        return _tap_matmuls(pp, pc, hp_out, wp_out, matmul)
     out = F.conv2d(pp.permute(0, 3, 1, 2), pc.oihw, stride=pc.s_packed)
     return out.permute(0, 2, 3, 1)[:, :hp_out, :wp_out, :]
 
@@ -252,8 +271,7 @@ def run_fused_contract(p: torch.Tensor, pc: PackedConv, contract: dict, *,
     tap-matmul kernel's epilogue; ``contract`` is :func:`tiled_contract`'s."""
     if pc.s_packed != 1:
         raise ValueError("fused contract path requires packed stride 1")
-    pp, hp_out, wp_out = _padded(p, pc)
-    return _tap_matmuls(pp, pc, hp_out, wp_out, matmul, **contract)
+    return _tap_matmuls(p, pc, matmul, **contract)
 
 
 def packed_conv(p: torch.Tensor, kernel, *, stride: int, fin: int, fout: int,
