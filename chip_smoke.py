@@ -16,7 +16,9 @@ Run from the repository root: ``python3 chip_smoke.py``.
    input, with CUDA events (``ms``, ``library_ms``), and the kernel and
    ``F.conv2d`` again as the replay of a CUDA graph of 20 launches (device
    time without the host's launch cost: ``device_ms``,
-   ``library_device_ms``).  Then every stage with a CIN
+   ``library_device_ms``).  The finish must equal its plain version bit for
+   bit, and two calls bit-equal, timed the same way beside its bytes bound.
+   Then every stage with a CIN
    prologue and the finish again in dual-style form (seeded second-style
    rows, a seeded weight plane in [0, 1]), with the same limits, timed beside
    the single-style time.
@@ -25,8 +27,10 @@ Run from the repository root: ``python3 chip_smoke.py``.
    ``skip_out`` within one bf16 ulp of the plain int8 version (expected equal:
    the int32 sums are exact; the count of differing elements is printed),
    moments within rtol 1e-3; ``act_stats`` on the same input against its plain
-   version, maxima and clip counts exactly.  Each int8 launch is timed beside
-   the bf16 time of the same stage and its int8 bound.  Last, each path at
+   version, maxima and clip counts exactly, into zeroed rows (two calls give
+   the same rows), timed by events and by graph replay beside its bytes
+   bound.  Each int8 launch is timed beside the bf16 time of the same stage
+   and its int8 bound.  Last, each path at
    grids the frame does not give, bf16 and int8, one style and two, with the
    same limits: the ragged-edge masks and the zeros after the transform.  The
    halo path (the stride-1 stages of at most 9 taps): a residual conv (3x3,
@@ -71,7 +75,9 @@ Run from the repository root: ``python3 chip_smoke.py``.
    run-to-run spread; clip fraction <= 1e-6) and flag one with its style
    params x 3 (max_ratio > 1.25, clips > 0); an 8-frame int8 chunk must match
    8 single int8 calls; the launch counts of ``conv_stage``, ``finish`` and
-   ``act_stats`` must match the frames.
+   ``act_stats`` must match the frames, and a calibrate call of 4 frames may
+   dispatch at most 4 + 4 fill operators (its two tables once, the CIN
+   moments once a frame), none an ``act_stats`` launch.
    Probe: the int8 matmul probe's plain product and band pattern, bf16 and
    int8 arms, checked against float64 (int8 exactly, bf16 within 2^-8 of the
    largest value), timed, with the int8/bf16 time ratio, TOPS and share of the
@@ -81,14 +87,16 @@ Run from the repository root: ``python3 chip_smoke.py``.
 4. Prints per-frame times of the kernel path (single, dual, chunk), the plain
    paths, the predictor's time for one and two styles, the int8 and dual int8
    frame, the int8 chunk per frame, calibration a frame and the int8 video
-   loop's host latency, each beside the card's name and power limit.
+   loop's host latency, a saturation check a frame, each beside the card's
+   name and power limit.
 5. The divider-1 plan, rst-1920-120-128-17 (960x1920x17 frames, a 120x240x128
    bottleneck, 2678 style params), at full width and depth with seeded
    weights: the engine must be ``three_seg`` with 18 conv stages and refuse
    two styles with the JAX package's ValueError.  Every stage (stem, c1, c2,
    c3, the residual core, e0, e1, e2, final) and the finish is held against
    its plain version with phase 2's limits, bf16 and int8, and timed beside
-   its bound and ``F.conv2d`` bf16.  Then the main path at 1920 as in phase 3,
+   its bound and ``F.conv2d`` bf16; the finish one style and two.  Then the
+   main path at 1920 as in phase 3,
    single style: 8 frames through ``stylize_video`` in bf16 (held against the
    eager f32 net and the plain bf16 composition), calibration on 4 frames
    (kernels against plain), 8 frames through ``stylize_video(quant="int8")``
@@ -97,7 +105,8 @@ Run from the repository root: ``python3 chip_smoke.py``.
    (phase 2's limits against single calls; two replays bit-equal), two calls
    of one frame bit-equal in bf16 and int8, the launch counts (18 ``conv_stage`` and 1 ``finish`` a frame; 18 ``act_stats``
    a calibrate or check frame), and its times: frame, chunk, calibration,
-   predictor, and the video loop's host latency, bf16 and int8.
+   saturation check, predictor, and the video loop's host latency, bf16 and
+   int8.
 6. The repack probe (``ops/probe_repack.py``): deinterleave, interleave,
    fold2 and unfold2 at the TPU probe's shapes and fold2 / unfold2 of the
    rst-1920 c2 output, each bit-equal to its plain version and timed beside
@@ -203,6 +212,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import torch.nn.functional as F
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from realtime_style_transfer_torch.config import ShapeConfig
     from realtime_style_transfer_torch.models.inference import make_inference_model
@@ -428,22 +438,31 @@ def main() -> int:
                   f"{moments_rel[0]:.3e}, sums {moments_rel[1]:.3e} (of the largest)")
         stats_row = None
         if st.quant:
-            # act_stats on the same input, prologue and skip, under the stage's act_inv
-            got = act_stats(x, st, pro, skip_in, st.act_inv)
+            # act_stats on the same input, prologue and skip, under the stage's act_inv,
+            # into zeroed rows; two calls give the same rows
+            def stats_rows():
+                return (torch.zeros(st.cin, dtype=f32, device=dev),
+                        torch.zeros(st.cin, dtype=torch.int64, device=dev))
+            got, again = stats_rows(), stats_rows()
+            act_stats(x, st, pro, skip_in, st.act_inv, *got)
+            act_stats(x, st, pro, skip_in, st.act_inv, *again)
             want = act_stats_plain(x, st, pro, skip_in, st.act_inv)
             torch.cuda.synchronize()
             stats_err = (got[0] - want[0]).abs().max().item()
             same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            repeat = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
             print(f"  {label} act_stats: max |x'| max_abs_err={stats_err:.3e}, clips "
-                  f"{int(got[1].sum())} vs {int(want[1].sum())} {'ok' if same else 'FAIL'}")
-            if not same:
+                  f"{int(got[1].sum())} vs {int(want[1].sum())} {'ok' if same else 'FAIL'}; "
+                  f"two calls equal {'ok' if repeat else 'FAIL'}")
+            if not (same and repeat):
                 failures.append(f"{label} act_stats")
-            a_ms = cuda_ms(lambda: act_stats(x, st, pro, skip_in, st.act_inv), 20)
+            a_ms = cuda_ms(lambda: act_stats(x, st, pro, skip_in, st.act_inv, *got), 20)
+            a_device_ms = graph_ms(lambda: act_stats(x, st, pro, skip_in, st.act_inv, *got))
             a_plain_ms = cuda_ms(lambda: act_stats_plain(x, st, pro, skip_in, st.act_inv), 3)
             h, w = st.in_hw
             a_ops, a_bytes = act_stats_work(h, w, st.cin, affine=pro is not None,
                                             skip_in=skip_in is not None, dual=dual, check=True)
-            stats_row = dict(err=stats_err, ms=a_ms, plain_ms=a_plain_ms,
+            stats_row = dict(err=stats_err, ms=a_ms, device_ms=a_device_ms, plain_ms=a_plain_ms,
                              ops_ms=bound_ms(a_ops, 0.0, "f32")[0],
                              bytes_ms=bound_ms(0.0, a_bytes)[0])
 
@@ -482,7 +501,8 @@ def main() -> int:
              + f"bound {max(ops_ms, bytes_ms):.4f} ms "
              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e9:.2f} "
              f"{'GOP int8' if st.quant else 'GFLOP'}, {n_bytes / 1e6:.1f} MB)"
-             + (f"; act_stats {stats_row['ms']:.4f} ms, plain {stats_row['plain_ms']:.4f} ms, "
+             + (f"; act_stats {stats_row['ms']:.4f} ms (graph replay "
+                f"{stats_row['device_ms']:.4f} ms), plain {stats_row['plain_ms']:.4f} ms, "
                 f"bound {max(stats_row['ops_ms'], stats_row['bytes_ms']):.4f} ms"
                 if stats_row else ""))
         return dict(err=err, ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
@@ -491,24 +511,35 @@ def main() -> int:
                     moments_rel=moments_rel, path=st.path, name=st.name)
 
     def check_finish(label, xf, pro):
-        """The finish on the (H, W, 3) ``xf`` against its plain version, timed."""
+        """The finish on the (H, W, 3) ``xf`` against its plain version, bit
+        for bit, two calls bit-equal; timed by events and graph replay."""
         h, w = xf.shape[:2]
         fin = {}
-        for side, fn in (("kernel", finish), ("plain", finish_plain)):
-            fin[side] = torch.empty((h // 4, w // 4, 128), dtype=bf16, device=dev)
+        for side, fn in (("kernel", finish), ("again", finish), ("plain", finish_plain)):
+            fin[side] = torch.full((h // 4, w // 4, 128), 7.0, dtype=bf16, device=dev)
             fn(xf, pro, fin[side])
         torch.cuda.synchronize()
-        print(f"{label}: in {tuple(xf.shape)} -> out {tuple(fin['kernel'].shape)}")
-        err = close(f"{label} out", fin["kernel"], fin["plain"], 1.6e-2, 1e-2)
+        err = (fin["kernel"].float() - fin["plain"].float()).abs().max().item()
+        same = torch.equal(fin["kernel"], fin["plain"])
+        repeat = torch.equal(fin["kernel"], fin["again"])
+        print(f"{label}: in {tuple(xf.shape)} -> out {tuple(fin['kernel'].shape)}, bit-equal to "
+              f"the plain version {'ok' if same else 'FAIL'} (max_abs_err={err:.3e}, "
+              f"{int((fin['kernel'] != fin['plain']).sum())} elements differ); two calls "
+              f"bit-equal {'ok' if repeat else 'FAIL'}")
+        if not (same and repeat):
+            failures.append(label)
         scratch = torch.empty_like(fin["kernel"])
         ms = cuda_ms(lambda: finish(xf, pro, scratch), 50)
+        device_ms = graph_ms(lambda: finish(xf, pro, scratch))
         plain_ms = cuda_ms(lambda: finish_plain(xf, pro, scratch), 10)
         ops, n_bytes = finish_work(h, w, 3, scratch.shape[2], dual=pro.dual)
         ops_ms, _ = bound_ms(ops, 0.0, "f32")
         bytes_ms, _ = bound_ms(0.0, n_bytes)
-        note(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-             f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
-        return dict(err=err, ms=ms, plain_ms=plain_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+        note(f"{label}: kernel {ms:.4f} ms (graph replay {device_ms:.4f} ms), plain "
+             f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+             f"({'bytes' if bytes_ms >= ops_ms else 'operations'}, {n_bytes / 1e6:.2f} MB)")
+        return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, ops_ms=ops_ms,
+                    bytes_ms=bytes_ms)
 
     def seeded_scales(engine):
         return (np.random.default_rng(SEED + 1).random((engine.n_conv_stages, 128))
@@ -802,14 +833,35 @@ def main() -> int:
         return 1
 
     # ---- phase 3, int8: calibrate, stream, check, chunk ---------------------------
+    class FillCount(TorchDispatchMode):
+        """Counts the fill and zero operators dispatched while it is on."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "fill" in str(func) or "zero" in str(func):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
     def check_calibration(label, engine, cal_packs, prep):
-        """Kernel calibration (launch counts) against plain calibration."""
+        """Kernel calibration (launch counts; no fill an act_stats launch)
+        against plain calibration."""
         n_st = engine.n_conv_stages
         kernels.reset_launch_counts()
-        cal_kernel = engine.calibrate_act_scales(cal_packs, prep)
+        with FillCount() as fills:
+            cal_kernel = engine.calibrate_act_scales(cal_packs, prep)
         torch.cuda.synchronize()
         check_launches(f"{label} calibrate", {"conv_stage": n_st, "act_stats": n_st},
                        len(cal_packs), {"finish": 0}, engine=engine)
+        # the two tables (at most two operators each) once, the CIN moments once a frame
+        fill_limit = 4 + len(cal_packs)
+        print(f"{label} calibrate: {fills.n} fill operators over {len(cal_packs)} frames and "
+              f"{kernels.act_stats.launches} act_stats launches (limit {fill_limit}: none a "
+              f"launch) {'ok' if fills.n <= fill_limit else 'FAIL'}")
+        if fills.n > fill_limit:
+            failures.append(f"{label} calibrate fills")
         cal_plain = engine.calibrate_act_scales(cal_packs, prep, plain=True)
         # each side takes its maxima over its own stage chain, and the two chains'
         # activations differ as their frames do (conv and moment summation
@@ -1012,6 +1064,8 @@ def main() -> int:
         int8_frame_ms = cuda_ms(lambda: eng_q.stylize_prepacked_raw(packed, prep_q), 20)
         dual_int8_frame_ms = cuda_ms(lambda: eng_q2.stylize_prepacked_raw(packed, prep_q2), 20)
         calibrate_ms = cuda_ms(lambda: fused.calibrate_act_scales([packed], prepared), 5)
+        check_ms = cuda_ms(lambda: fused.check_act_saturation(
+            [packed], prepared, int8_runs["int8"]["run"]["act_scales"]), 5)
     int8_chunk_ms = chunk["int8"]["ms"]
     lat = sorted(run["latency_s"])
     lat2 = sorted(run2["latency_s"])
@@ -1039,7 +1093,8 @@ def main() -> int:
     note(f"dual int8 frame, kernel path: {dual_int8_frame_ms:.4f} ms "
          f"({dual_int8_frame_ms / dual_frame_ms:.3f} of dual bf16 {dual_frame_ms:.4f} ms)")
     note(f"int8 chunk of {N_FRAMES}, per frame: {int8_chunk_ms:.4f} ms; calibration "
-         f"(calibrate_act_scales, one frame): {calibrate_ms:.4f} ms")
+         f"(calibrate_act_scales, one frame): {calibrate_ms:.4f} ms; saturation check "
+         f"(check_act_saturation, one frame): {check_ms:.4f} ms")
     for label, r in int8_runs.items():
         lat_q = sorted(r["run"]["latency_s"])
         eb, eq, ps = r["errs"]
@@ -1079,6 +1134,8 @@ def main() -> int:
     h1, w1 = plan1.input_shape[:2]
     xf1 = (torch.randn((h1, w1, 3), generator=gen, device=dev) * 2.0).to(bf16)
     fin1 = check_finish("rst1920 finish", xf1, prologue_for(xf1, 3, False, (h1, w1)))
+    fin1_dual = check_finish("rst1920 finish dual", xf1,
+                             prologue_for(xf1, 3, False, (h1, w1), dual=True))
     print(f"phase 5, stages: every {SPEC_1920} stage in int8 form (seeded scales)", flush=True)
     fused1_seeded = FusedTransfer(variables1, plan1, quant="int8",
                                   act_scales=seeded_scales(fused1))
@@ -1148,6 +1205,8 @@ def main() -> int:
         eager1_ms = cuda_ms(lambda: model1.transfer(content1, style_params1), 3)
         predictor1_ms = cuda_ms(lambda: model1.predict_style_params(style1), 10)
         calibrate1_ms = cuda_ms(lambda: fused1.calibrate_act_scales([packed1], prepared1), 5)
+        check1_ms = cuda_ms(lambda: fused1.check_act_saturation(
+            [packed1], prepared1, int8_run1["run"]["act_scales"]), 5)
     lat1 = sorted(run1["latency_s"])
     lat1_q = sorted(int8_run1["run"]["latency_s"])
     stage1_ms = sum(r["ms"] for r in rows1)
@@ -1164,7 +1223,8 @@ def main() -> int:
         note(f"rst1920 chunk {label}: {c['ms']:.4f} ms a frame (graph replay "
              f"{c['replay_ms']:.4f} ms), single calls {c['singles_ms']:.4f} ms (stage loop "
              f"{c['raw_ms']:.4f} ms)")
-    note(f"rst1920 calibration (calibrate_act_scales, one frame): {calibrate1_ms:.4f} ms")
+    note(f"rst1920 calibration (calibrate_act_scales, one frame): {calibrate1_ms:.4f} ms; "
+         f"saturation check (check_act_saturation, one frame): {check1_ms:.4f} ms")
     note(f"style predictor (MobileNetV3-Small, 960x1920): {predictor1_ms:.4f} ms")
     eb1, eq1, ps1 = int8_run1["errs"]
     note(f"rst1920 video loop host latency per frame (stylize + D2H): bf16 median "
@@ -1984,28 +2044,47 @@ def main() -> int:
          "max_abs_err": fin["err"], "ms": fin["ms"], "plain_ms": fin["plain_ms"],
          "bound_ms": max(fin["bytes_ms"], fin["ops_ms"]),
          "bound_by": "bytes" if fin["bytes_ms"] >= fin["ops_ms"] else "operations",
-         "library_ms": None,
+         "library_ms": None, "device_ms": fin["device_ms"],
+         "per": "one rst960 frame's launch (ms: a wrapper call timed with CUDA events; "
+                "device_ms: a CUDA graph's replay)",
+         "library_note": "no one PyTorch call computes the CIN affine, sigmoid and f4 pack",
          "dual_launches": launches2["finish"], "dual_max_abs_err": fin_dual["err"],
-         "dual_ms": fin_dual["ms"], "dual_plain_ms": fin_dual["plain_ms"],
+         "dual_ms": fin_dual["ms"], "dual_device_ms": fin_dual["device_ms"],
+         "dual_plain_ms": fin_dual["plain_ms"],
          "dual_bound_ms": max(fin_dual["bytes_ms"], fin_dual["ops_ms"]),
          "chunk_captured": chunk["single"]["captured"]["finish"],
          "rst1920_launches": launches1["finish"], "rst1920_max_abs_err": fin1["err"],
-         "rst1920_ms": fin1["ms"], "rst1920_plain_ms": fin1["plain_ms"],
+         "rst1920_ms": fin1["ms"], "rst1920_device_ms": fin1["device_ms"],
+         "rst1920_plain_ms": fin1["plain_ms"],
          "rst1920_bound_ms": max(fin1["bytes_ms"], fin1["ops_ms"]),
+         "rst1920_dual_max_abs_err": fin1_dual["err"], "rst1920_dual_ms": fin1_dual["ms"],
+         "rst1920_dual_device_ms": fin1_dual["device_ms"],
+         "rst1920_dual_bound_ms": max(fin1_dual["bytes_ms"], fin1_dual["ops_ms"]),
          "rst1920_library_ms": None,
          "rst1920_int8_launches": int8_run1["launches"]["finish"]},
         dict({"name": "act_stats", "route": "cuda", "source": f"{SOURCES}/act_stats.cu",
-              "replaces": f"{TPU_KERNEL}:929",
+              "replaces": f"{TPU_KERNEL}:929", "also_replaces": f"{TPU_KERNEL}:932",
               "launches": int8_runs["int8"]["launches"]["act_stats"],
               "max_abs_err": max(r["err"] for r in stats_rows),
               "ms": sum(r["ms"] for r in stats_rows),
+              "device_ms": sum(r["device_ms"] for r in stats_rows),
               "plain_ms": sum(r["plain_ms"] for r in stats_rows),
               "bound_ms": bound_sum(stats_rows), "bound_by": bound_by(stats_rows),
-              "library_ms": None, "per": "one frame: 16 launches (18 at rst1920), check mode",
-              "calibrate_frame_ms": calibrate_ms,
+              "library_ms": None,
+              "library_note": "no one PyTorch call computes the prologue, the max and the "
+                              "clip count",
+              "per": "one frame: 16 launches (18 at rst1920), check mode, summed (ms: wrapper "
+                     "calls timed with CUDA events; device_ms: CUDA graphs' replays)",
+              "stage_device_ms": {r["name"]: r["stats"]["device_ms"]
+                                  for r in int8_rows.values()},
+              "calibrate_frame_ms": calibrate_ms, "check_frame_ms": check_ms,
               "dual_launches": int8_runs["dual int8"]["launches"]["act_stats"],
+              "dual_device_ms": sum(int8_dual_rows.get(i, r)["stats"]["device_ms"]
+                                    for i, r in int8_rows.items()),
               "rst1920_launches": int8_run1["launches"]["act_stats"],
-              "rst1920_library_ms": None, "rst1920_calibrate_frame_ms": calibrate1_ms},
+              "rst1920_device_ms": sum(r["device_ms"] for r in stats_rows1),
+              "rst1920_library_ms": None, "rst1920_calibrate_frame_ms": calibrate1_ms,
+              "rst1920_check_frame_ms": check1_ms},
              **rst1920(stats_rows1)),
         probe_entry("mm", 57),
         probe_entry("band", 139),

@@ -1,9 +1,20 @@
-"""Where a launch of ``csrc/conv_stage.cu`` or ``csrc/conv_matmul.cu`` spends
-its time, on one card.
+"""Where a launch of the port's kernels spends its time, on one card.
 
     python -m realtime_style_transfer_torch.halo_profile [ROOT ...]
 
-For the stages of the flagship frame on each path of the kernel at their
+First the two byte-bound passes beside each ROOT, a checkout of another
+version of the port (a ``git archive`` of an earlier commit): ``finish`` at
+the rst-960 and rst-1920 frames, one style and two, and ``act_stats`` in
+check mode on every conv stage's input of one seeded frame (rst-960 one
+style and two, rst-1920), each launch's graph time beside its bytes bound
+and, for ``act_stats``, the phases of its blocks (``// PROFILE LAP i``, as
+below); each output must be bit-equal to this tree's and to the plain
+version, or the command exits 1.  Then ``calibrate_act_scales`` and
+``check_act_saturation`` a frame of each ROOT's engine and this one in
+turns ROOT, this, this, ROOT (CUDA events, the median of 5 windows of 10
+frames), their results equal.
+
+Then, for the stages of the flagship frame on each path of the kernel at their
 real shapes (window: the stem from the f4 pack and the final conv; strided:
 c1, c2, and c3 of rst-1920; halo: res0b, res0a, e0, e1, e2 of rst-1920 and a
 5x11 grid that is one block), bf16 and int8, each with its frame's prologue
@@ -38,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import importlib
 import importlib.util
+import inspect
 import re
 import subprocess
 import sys
@@ -50,7 +62,8 @@ import torch.nn.functional as F
 
 from .ops import kernels
 from .ops.conv import pack_transpose_kernel
-from .ops.kernels import _ARGTYPES, Prologue, launch_conv_stage
+from .ops.bounds import act_stats_work, bound_ms, finish_work
+from .ops.kernels import _ARGTYPES, Prologue, launch_act_stats, launch_conv_stage
 from .ops.packed_conv import pack
 from .timing import device_share, graph_ms
 
@@ -65,9 +78,14 @@ PHASES = {
 MATMUL_PHASES = {
     "conv_wgmma_kernel": ("set-up", "fill wait", "K loop", "sums to shared", "epilogue"),
 }
+# the same for act_stats.cu's kernel
+PASS_PHASES = {"act_stats_kernel": ("copies + fold", "stream", "flush")}
 # the packed path's conv_matmul launches (bounds.conv_matmul_launches) and frames
 MATMUL_SPECS = ("rst-960-120-128-17", "rst-1920-120-128-17")
 FRAMES = (("rst-960-120-128-17", 1), ("rst-1920-120-128-17", 2))
+# finish's frames (the final stage's output grid) and act_stats' engines
+FINISH_FRAMES = (("rst-960", (480, 960)), ("rst-1920", (960, 1920)))
+STATS_FRAMES = (("rst-960-120-128-17", 1), ("rst-960-120-128-17", 2), ("rst-1920-120-128-17", 1))
 # label, path, kernel (kh, kw, cin, cout), input grid, pack input, prologue
 CASES = (
     ("stem", "window", (9, 9, 17, 32), (480, 960), True, False),
@@ -92,11 +110,12 @@ def _kernel_span(text: str, name: str):
 
 
 def profiled_source(text: str) -> str:
-    """A kernel source (conv_stage.cu, conv_matmul.cu) with clock64 counters
-    in each of its kernels in PHASES or MATMUL_PHASES: its ``// PROFILE LAP
+    """A kernel source (conv_stage.cu, conv_matmul.cu, act_stats.cu) with
+    clock64 counters in each of its kernels in PHASES, MATMUL_PHASES or
+    PASS_PHASES: its ``// PROFILE LAP
     i`` markers, in order i = 0, 1, ..., close counter i; each block's thread
     0 writes them to ``Params::counters``, 8 a block."""
-    for name, phases in {**PHASES, **MATMUL_PHASES}.items():
+    for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES}.items():
         if f"{name}(const Params p" not in text:
             continue
         start, end = _kernel_span(text, name)
@@ -335,6 +354,201 @@ def matmul_part(prof, others, mhz: float) -> None:
         del model, mine, frames
 
 
+def _stats_call(k, x, st, pro, skip_in, act_inv):
+    """One ``act_stats`` launch of kernels module ``k`` on these inputs as a
+    closure, and its (maxima, clips) from zero: given rows where ``k`` takes
+    them (``max_out``, ``clips_out``), else as it returns them."""
+    dev = x.device
+    pro = k.Prologue(*pro) if pro is not None else None
+    if "max_out" in inspect.signature(k.act_stats).parameters:
+        rows = (torch.zeros(st.cin, device=dev), torch.zeros(st.cin, dtype=torch.int64,
+                                                             device=dev))
+
+        def fn():
+            k.act_stats(x, st, pro, skip_in, act_inv, max_out=rows[0], clips_out=rows[1])
+        fn()
+        return fn, (rows[0].clone(), rows[1].clone())
+
+    def fn():
+        return k.act_stats(x, st, pro, skip_in, act_inv)
+    return fn, fn()
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x.to(torch.int64) if x.dtype == torch.int32 else x,
+                           y.to(torch.int64) if y.dtype == torch.int32 else y)
+               for x, y in zip(a, b))
+
+
+def finish_part(others) -> list:
+    """``finish`` at the rst-960 and rst-1920 frames, one style and two: the
+    graph time of this build and each ROOT's on the same seeded input, its
+    bytes bound; each output bit-equal to this one's and to ``finish_plain``."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bad = []
+    for label, (h, w) in FINISH_FRAMES:
+        x = (torch.randn((h, w, 3), generator=gen, device=dev) * 2.0).to(bf16)
+        xf = x.float().reshape(-1, 3)
+        stats = torch.stack([xf.sum(0), (xf * xf).sum(0)]).contiguous()
+        for dual in (False, True):
+            rows = [torch.rand(3, generator=gen, device=dev) * 0.4 + 0.8,
+                    torch.rand(3, generator=gen, device=dev) * 0.4 - 0.2]
+            second = ((torch.rand(3, generator=gen, device=dev) * 0.4 + 0.8,
+                       torch.rand(3, generator=gen, device=dev) * 0.4 - 0.2,
+                       torch.rand((h, w), generator=gen, device=dev).to(bf16)) if dual else ())
+            pro = Prologue(stats, float(h * w), *rows, 1e-5, False, *second)
+            outs = {name: torch.empty((h // 4, w // 4, 128), dtype=bf16, device=dev)
+                    for name in ("this", "plain", *others)}
+            kernels.finish_plain(x, pro, outs["plain"])
+            kernels.finish(x, pro, outs["this"])
+            ms = {"this": graph_ms(lambda: kernels.finish(x, pro, outs["this"]))}
+            for name, k in others.items():
+                kp = k.Prologue(*pro)
+                k.finish(x, kp, outs[name])
+                ms[name] = graph_ms(lambda: k.finish(x, kp, outs[name]))
+            torch.cuda.synchronize()
+            equal = {name: torch.equal(outs[name], outs["this"]) for name in outs if name != "this"}
+            bad += [f"finish {label}{' dual' if dual else ''} vs {n}" for n, e in equal.items()
+                    if not e]
+            ops, n_bytes = finish_work(h, w, 3, 128, dual=dual)
+            bound, by = max((bound_ms(ops, 0.0, "f32"), bound_ms(0.0, n_bytes)))
+            print(f"finish {label}{' dual' if dual else ''} ({h}x{w}x3 -> {h // 4}x{w // 4}x128): "
+                  + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+                  + f" (graph); bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB); "
+                  + ", ".join(f"bit-equal to {n} {'yes' if e else 'NO'}" for n, e in equal.items()),
+                  flush=True)
+    return bad
+
+
+def _stage_inputs(engine, packed, prep, inv_rows):
+    """(stage, x, prologue, skip_in, act_inv) of each conv stage of one frame
+    of ``engine``, copied as the stage loop hands them to ``act_stats``."""
+    rec = []
+
+    def hook(i, x, st, pro, skip_in):
+        if pro is not None:
+            pro = pro._replace(stats=pro.stats.clone())
+        rec.append((st, x.clone(), pro, None if skip_in is None else skip_in.clone(),
+                    inv_rows[i, :st.cin]))
+
+    engine._run_frame(packed, prep, None, False, stage_hook=hook)
+    return rec
+
+
+def act_stats_part(others, prof=None, mhz: float = 1.0) -> list:
+    """``act_stats`` in check mode (seeded scales) on every conv stage input
+    of one seeded frame: rst-960 one style and two, rst-1920 one style; the
+    graph time of this build and each ROOT's beside each launch's bound, the
+    frame's sums, each result equal to this one's and to ``act_stats_plain``;
+    then ``calibrate_act_scales`` and ``check_act_saturation`` a frame (CUDA
+    events) of this engine and each ROOT's in turns, their results equal.
+    Given ``prof``, a profiled build of ``act_stats.cu``, also the phases of
+    each launch's blocks."""
+    from .config import ShapeConfig
+    from .models.inference import make_inference_model
+    from .ops.fused_transfer import FusedTransfer
+    from .weights import to_flax
+
+    dev = torch.device("cuda")
+    bad = []
+    engines = {name: importlib.import_module(k.__name__.rsplit(".", 2)[0]
+                                             + ".ops.fused_transfer").FusedTransfer
+               for name, k in others.items()}
+    for spec, styles in STATS_FRAMES:
+        model = make_inference_model(ShapeConfig.from_spec(spec, num_styles=styles), seed=0,
+                                     device=dev)
+        plan = model.plan
+        variables = to_flax(model.transfer.state_dict())
+        rng = np.random.default_rng(0)
+        h, w = plan.input_shape[:2]
+        frame = rng.random((1,) + tuple(plan.input_shape), dtype=np.float32)
+        sp = torch.from_numpy(rng.random((1, styles, plan.num_style_parameters),
+                                         dtype=np.float32) + 0.5)
+        wmap = (torch.linspace(0, 1, h)[None, :, None, None].expand(1, h, w, 1).contiguous()
+                if styles == 2 else None)
+        mine = FusedTransfer(variables, plan, num_styles=styles, device=dev)
+        prep = mine.prepare_style(sp, wmap)
+        packed = mine.pack_frame_np(frame).to(dev)
+        scales = (np.random.default_rng(1).random((mine.n_conv_stages, 128)) * 2.5
+                  + 0.5).astype(np.float32)
+        inv = torch.from_numpy(mine._act_inv_rows(scales)).to(dev)
+        tag = f"{spec}, {styles} style(s)"
+        sums = dict.fromkeys(["this", *others, "bound"], 0.0)
+        for st, x, pro, skip_in, act_inv in _stage_inputs(mine, packed, prep, inv):
+            fn, got = _stats_call(kernels, x, st, pro, skip_in, act_inv)
+            want = kernels.act_stats_plain(x, st, pro, skip_in, act_inv)
+            ms = {"this": graph_ms(fn)}
+            equal = {"plain": _same(got, want[:2])}
+            for name, k in others.items():
+                ofn, ogot = _stats_call(k, x, st, pro, skip_in, act_inv)
+                ms[name] = graph_ms(ofn)
+                equal[name] = _same(got, ogot)
+            ih, iw = st.in_hw
+            ops, n_bytes = act_stats_work(ih, iw, st.cin, affine=pro is not None,
+                                          skip_in=skip_in is not None,
+                                          dual=pro is not None and pro.dual, check=True)
+            bound, by = max(bound_ms(ops, 0.0, "f32"), bound_ms(0.0, n_bytes))
+            phases = ""
+            if prof is not None:
+                grid = kernels.stats_plan(st, torch.cuda.get_device_properties(dev)
+                                          .multi_processor_count)
+                counters = torch.zeros(grid.blocks * 8, dtype=torch.int64, device=dev)
+                rows = (torch.zeros(st.cin, device=dev),
+                        torch.zeros(st.cin, dtype=torch.int64, device=dev))
+                for _ in range(3):
+                    counters.zero_()
+                    launch_act_stats(prof, x, st, pro, skip_in, act_inv, *rows, counters)
+                torch.cuda.synchronize()
+                phases = "; " + _phases(counters, PASS_PHASES["act_stats_kernel"], mhz)
+            for name, v in ms.items():
+                sums[name] += v
+            sums["bound"] += bound
+            bad += [f"act_stats {tag} {st.name} vs {n}" for n, e in equal.items() if not e]
+            print(f"act_stats {tag} {st.name} ({ih}x{iw}x{st.cin}"
+                  f"{', pack' if st.pack_c else ''}{', affine' if pro is not None else ''}"
+                  f"{', dual' if pro is not None and pro.dual else ''}"
+                  f"{', skip' if skip_in is not None else ''}): "
+                  + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+                  + f" (graph); bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB); clips "
+                  f"{int(got[1].sum())}; "
+                  + ", ".join(f"equal to {n} {'yes' if e else 'NO'}" for n, e in equal.items())
+                  + phases, flush=True)
+        print(f"act_stats {tag}, the frame's {len(mine.steps)} launches summed: "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in sums.items()), flush=True)
+        for name in others:
+            if "max_out" not in inspect.signature(others[name].act_stats).parameters:
+                fills = graph_ms(lambda: (torch.zeros(128, device=dev),
+                                          torch.zeros(128, dtype=torch.int32, device=dev)))
+                print(f"act_stats {tag}: {name}'s wrapper fills two rows a launch, "
+                      f"{fills:.4f} ms (graph) of its time", flush=True)
+        runs = {"this": mine}
+        for name, cls in engines.items():
+            runs[name] = cls(variables, plan, num_styles=styles, device=dev)
+        calls = {name: {"calibrate": (lambda e, pr: lambda: e.calibrate_act_scales(
+                            [packed], pr))(eng, eng.prepare_style(sp, wmap)),
+                        "check": (lambda e, pr: lambda: e.check_act_saturation(
+                            [packed], pr, scales))(eng, eng.prepare_style(sp, wmap))}
+                 for name, eng in runs.items()}
+        with torch.no_grad():
+            results = {name: (c["calibrate"](), c["check"]()) for name, c in calls.items()}
+            for name in others or (None,):
+                same = name is None or (
+                    np.array_equal(results[name][0], results["this"][0])
+                    and results[name][1] == results["this"][1])
+                if not same:
+                    bad.append(f"calibrate/check {tag} vs {name}")
+                order = ("this",) if name is None else (name, "this", "this", name)
+                for what in ("calibrate", "check"):
+                    turns = [(r, _window_ms(calls[r][what], 10, 5)) for r in order]
+                    print(f"{what} frame {tag}, turns {', '.join(order)} (events, a frame): "
+                          + ", ".join(f"{r} {v:.4f} ms" for r, v in turns)
+                          + ("" if name is None else f"; results equal {'yes' if same else 'NO'}"),
+                          flush=True)
+        del model, mine, runs
+    return bad
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("halo_profile: no CUDA device", file=sys.stderr)
@@ -346,18 +560,22 @@ def main(argv) -> int:
     others = {Path(root).name: load_package(root, f"_halo_profile_root{i}")
               for i, root in enumerate(argv)}
     # every build at once: these sources, their profiled copies, each root's
-    sources = ("conv_stage.cu", "conv_matmul.cu")
+    sources = ("conv_stage.cu", "conv_matmul.cu", "finish.cu", "act_stats.cu")
     with ThreadPoolExecutor() as pool:
         profs = {src: pool.submit(_build, profiled_source((kernels.CSRC / src).read_text()),
-                                  f"halo_profile_{Path(src).stem}") for src in sources}
+                                  f"halo_profile_{Path(src).stem}")
+                 for src in ("conv_stage.cu", "conv_matmul.cu", "act_stats.cu")}
         builds = [pool.submit(k.build, sources) for k in (kernels, *others.values())]
         profs = {src: f.result() for src, f in profs.items()}
         for b in builds:
             b.result()
     print(f"card: {card}", flush=True)
+    bad = finish_part(others) + act_stats_part(others, profs["act_stats.cu"], mhz)
     stage_part(profs["conv_stage.cu"], others, mhz)
     matmul_part(profs["conv_matmul.cu"], others, mhz)
-    return 0
+    if bad:
+        print(f"halo_profile: results differ: {bad}", file=sys.stderr)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -71,13 +71,14 @@ def act_stats_work(h: int, w: int, c: int, *, affine: bool, skip_in: bool = Fals
                    dual: bool = False, check: bool = False) -> Tuple[float, float]:
     """(f32 operations, bytes) of one ``act_stats`` launch over an (H, W, C)
     bf16 stage input: read it (the stem reads the C logical channels of the
-    pack) and the skip and, dual, the (H, W) weight plane; write 2 x C words.
+    pack) and the skip and, dual, the (H, W) weight plane; write the C f32
+    maxima and, checking, the C int64 clip counts.
     Per value: the affine (2), the blend (4), relu, skip, abs, max (1 each),
     and the clip test (2)."""
     n = h * w * c
     ops = n * (2 * int(affine) + 4 * int(dual) + 2 * int(affine) + int(skip_in) + 2
                + 2 * int(check))
-    n_bytes = 2 * n * (1 + int(skip_in)) + (2 * h * w if dual else 0) + 8 * c
+    n_bytes = 2 * n * (1 + int(skip_in)) + (2 * h * w if dual else 0) + (12 if check else 4) * c
     return float(ops), float(n_bytes)
 
 

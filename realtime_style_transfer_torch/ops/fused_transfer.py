@@ -52,7 +52,7 @@ the tiling.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -455,19 +455,16 @@ class FusedTransfer:
 
     def _run_frame(self, packed: torch.Tensor, prepared: PreparedStyle,
                    result: Optional[torch.Tensor], plain: bool,
-                   stats: Optional[list] = None,
-                   inv_rows: Optional[torch.Tensor] = None) -> None:
+                   stage_hook: Optional[Callable] = None) -> None:
         """The stage loop of one frame pack on the engine's device into the
         packed (H/4, W/4, 128) bf16 ``result``; device work only, so a CUDA
-        graph can record it.  Given a ``stats`` list (calibrate and check),
-        an ``act_stats`` launch reads each conv stage's input first and
-        appends its (max, clips), under row i of ``inv_rows`` for stage i,
-        and the finish is skipped."""
+        graph can record it.  Given a ``stage_hook`` (calibrate and check),
+        each conv stage i first calls ``stage_hook(i, x, stage, prologue,
+        skip_in)`` on its input, and the finish is skipped."""
         dev = self.device
         bf16 = torch.bfloat16
-        run_conv, run_finish, run_stats = (
-            (conv_stage_plain, finish_plain, act_stats_plain) if plain
-            else (conv_stage, finish, act_stats))
+        run_conv, run_finish = ((conv_stage_plain, finish_plain) if plain
+                                else (conv_stage, finish))
         self._moments.zero_()
         skips = [torch.empty(self._skip_shape, dtype=bf16, device=dev) for _ in range(2)]
         x = packed
@@ -475,16 +472,15 @@ class FusedTransfer:
             st = step.stage
             prologue = None if step.src < 0 else self._prologue(prepared, step.src, step.in_relu)
             skip_in = None if step.skip_in is None else skips[step.skip_in]
-            if stats is not None:
-                stats.append(run_stats(x, st, prologue, skip_in,
-                                       None if inv_rows is None else inv_rows[i, :st.cin]))
+            if stage_hook is not None:
+                stage_hook(i, x, st, prologue, skip_in)
             out = torch.empty(st.out_shape, dtype=bf16, device=dev)
             run_conv(
                 x, st, out, prologue=prologue, skip_in=skip_in,
                 skip_out=None if step.skip_out is None else skips[step.skip_out],
                 stats_out=None if step.slot < 0 else self._moment_views[step.slot])
             x = out
-        if stats is None:
+        if stage_hook is None:
             run_finish(x, self._prologue(prepared, len(self._slot_channels) - 1, False), result)
 
     # ---- int8 calibrate and check ---------------------------------------------
@@ -492,24 +488,26 @@ class FusedTransfer:
     def _act_stats(self, packed_frames, prepared: PreparedStyle,
                    inv_rows: Optional[np.ndarray], plain: bool):
         """The stage loop over ``packed_frames`` with ``act_stats`` before
-        each conv stage -> ((n_conv_stages, 128) maxima, the same shape of
-        clip counts, frame count)."""
+        each conv stage, each launch maxing and adding into its stage's row
+        of a (n_conv_stages, 128) f32 table of maxima and an int64 table of
+        clip counts on the engine's device (zeroed once, copied to the host
+        once) -> (maxima, clip counts, frame count)."""
         self._check_prepared(prepared)
         n, dev = self.n_conv_stages, self.device
-        maxima = np.zeros((n, LANE), np.float32)
-        clips = np.zeros((n, LANE), np.int64)
+        maxima = torch.zeros((n, LANE), dtype=torch.float32, device=dev)
+        clips = torch.zeros((n, LANE), dtype=torch.int64, device=dev)
         inv = None if inv_rows is None else torch.tensor(inv_rows, device=dev)
+        run_stats = act_stats_plain if plain else act_stats
+
+        def hook(i, x, st, prologue, skip_in):
+            run_stats(x, st, prologue, skip_in, None if inv is None else inv[i, :st.cin],
+                      maxima[i, :st.cin], clips[i, :st.cin])
+
         frames = 0
         for packed in packed_frames:
-            stats: list = []
-            self._run_frame(packed.to(dev, non_blocking=True), prepared, None, plain,
-                            stats, inv)
-            for i, (m, c) in enumerate(stats):
-                cin = m.numel()
-                maxima[i, :cin] = np.maximum(maxima[i, :cin], m.cpu().numpy())
-                clips[i, :cin] += c.cpu().numpy()
+            self._run_frame(packed.to(dev, non_blocking=True), prepared, None, plain, hook)
             frames += 1
-        return maxima, clips, frames
+        return maxima.cpu().numpy(), clips.cpu().numpy(), frames
 
     def calibrate_act_scales(self, packed_frames, prepared: PreparedStyle, *,
                              plain: bool = False) -> np.ndarray:

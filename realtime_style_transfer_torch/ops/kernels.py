@@ -26,7 +26,11 @@ their K running along a window row (``window``), the stride-1 stages of at
 most 9 taps from the input halo of an 8x16 output tile (``halo``), the
 stride-2 stages from the same tile over an input halo split by column parity
 (``strided``); ``PERF.md`` has the measurements.
-``finish`` and ``act_stats`` are one elementwise pass each, bound by bytes.
+``finish`` and ``act_stats`` are one elementwise pass each, bound by bytes;
+their grids come from :func:`finish_plan` and :func:`act_stats_plan`, whose
+numpy twins :func:`finish_map` and :func:`stem_stats_map` replay the
+kernels' index maps for the CPU tests.  ``act_stats`` maxes and adds into
+rows its caller passes, so a calibrate or check run keeps one table a call.
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to the
 plain PyTorch version (same signature, same rounding points: bf16 storage,
@@ -80,13 +84,18 @@ PATHS = {"strided": 0, "window": 1, "halo": 2}  # conv_stage.cu's PATH_* codes
 MOMENT_GROUP = 32  # conv_stage.cu's GROUP: blocks one block adds the moments of
 MAX_CIN = 128    # widest CIN prologue conv_stage.cu holds in shared memory
 EPI = {"contract": 0, "relu": 1, "bias": 2}
+SMS = 132        # the H100's SMs: what the grid twins size for without a card
+PASS_THREADS = 256  # threads a block of finish.cu and act_stats.cu
+FINISH_STAGE = 4096  # most input values a finish block stages a row (4 * tpx * C)
+STATS_LOADS = 4  # act_stats.cu's LOADS: vectors a thread copies a stage of its ring
+STATS_BLOCKS_PER_SM = 2  # act_stats' grid, where the input has the pixels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "rst_conv_stage": ([_P] * 12 + [_F, _F, _I, _I, _P, _P, _P, _P] + [_I] * 19
                        + [_P, _P, _I, _P, _P, _I, _I, _P]),
-    "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 4 + [_P],
-    "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 5 + [_P],
+    "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 5 + [_I] * 6 + [_P],
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
     "rst_conv_matmul": [_P] * 8 + [_I] * 13 + [_P],
@@ -171,6 +180,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -609,15 +622,24 @@ def conv_stage_plain(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
 
 def act_stats_plain(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
                     skip_in: Optional[torch.Tensor] = None,
-                    act_inv: Optional[torch.Tensor] = None
+                    act_inv: Optional[torch.Tensor] = None,
+                    max_out: Optional[torch.Tensor] = None,
+                    clips_out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`act_stats`: per input channel of ``st``,
-    the max of |x'| (f32) and, given the ``act_inv`` row, the count of values
-    with ``|x'| * act_inv > 127.5`` (int32), each element counted once."""
+    the max of |x'| (f32) maxed into ``max_out`` and, given the ``act_inv``
+    row, the count of values with ``|x'| * act_inv > 127.5`` (int64) added
+    into ``clips_out``, each element counted once; rows not given start
+    from zeros."""
     a = stage_input(x, st, prologue, skip_in).float().abs().reshape(-1, st.cin)
-    clips = (torch.zeros(st.cin, dtype=torch.int32, device=x.device) if act_inv is None
-             else (a * act_inv > 127.5).sum(dim=0, dtype=torch.int32))
-    return a.amax(dim=0), clips
+    if max_out is None:
+        max_out = torch.zeros(st.cin, dtype=torch.float32, device=x.device)
+    if clips_out is None:
+        clips_out = torch.zeros(st.cin, dtype=torch.int64, device=x.device)
+    torch.maximum(max_out, a.amax(dim=0), out=max_out)
+    if act_inv is not None:
+        clips_out += (a * act_inv > 127.5).sum(dim=0)
+    return max_out, clips_out
 
 
 def finish_plain(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tensor:
@@ -627,6 +649,153 @@ def finish_plain(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torc
     out.zero_()
     out[:, :, :16 * c] = pack(y[None], 4)[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the byte-bound passes' grids, and numpy replays of their index maps
+# ---------------------------------------------------------------------------
+
+
+class FinishPlan(NamedTuple):
+    tpx: int               # packed columns a block writes
+    grid: Tuple[int, int]  # (column tiles, packed rows)
+    smem: int              # dynamic shared bytes a block
+
+
+def _pitch(n: int) -> int:
+    """finish.cu's shared row for a staged span of ``n`` values: rounded up
+    to 16 bytes, plus room for the span's offset from its 16-byte boundary."""
+    return -(-n // 8) * 8 + 16
+
+
+def finish_plan(h: int, w: int, c: int, dual: bool = False, sms: int = SMS) -> FinishPlan:
+    """finish.cu's tile and grid: a block writes ``tpx`` packed columns of
+    one packed row, ``tpx`` a multiple of the packed pixels its threads
+    cover at once (``PASS_THREADS // (2 c)``, one real output vector a thread),
+    the largest up to 128 whose 4 staged rows hold at most
+    :data:`FINISH_STAGE` values each and that gives every SM at least 2
+    blocks (down to one multiple)."""
+    hp, wp = h // 4, w // 4
+    per = PASS_THREADS // (2 * c)
+    k = max(1, 128 // per)
+    while k > 1 and (4 * per * k * c > FINISH_STAGE or hp * -(-wp // (per * k)) < 2 * sms):
+        k -= 1
+    tpx = per * k
+    smem = 2 * 4 * _pitch(4 * tpx * c) + (2 * 4 * _pitch(4 * tpx) if dual else 0)
+    return FinishPlan(tpx, (-(-wp // tpx), hp), smem)
+
+
+def _stage_span(e0: int, n: int, pitch: int) -> np.ndarray:
+    """finish.cu's ``stage_span``: the source index of each value of a
+    shared row (-1 where nothing lands)."""
+    a0 = e0 & ~7
+    granules = (e0 + n - a0 + 7) >> 3
+    if 8 * granules > pitch:
+        raise ValueError("a staged span overflows its shared row")
+    row = np.full(pitch, -1, np.int64)
+    row[:8 * granules] = np.arange(a0, a0 + 8 * granules)
+    return row
+
+
+def finish_map(h: int, w: int, c: int, out_c: int, sms: int = SMS):
+    """numpy replay of finish.cu's index map, through its staged shared
+    rows: ``(out_idx, src_idx, w_idx)``, one entry per output value written,
+    the flat index of the value in the (h/4, w/4, out_c) output, of the input
+    value it takes in the flat (h, w, c) input (-1: a zero lane) and of the
+    weight-plane value it takes in the flat (h, w) plane (-1: none)."""
+    plan = finish_plan(h, w, c, sms=sms)
+    tpx, (tiles, hp) = plan.tpx, plan.grid
+    wp = w // 4
+    pitch, wpitch = _pitch(4 * tpx * c), _pitch(4 * tpx)
+    nvo, nreal = out_c // 8, 2 * c
+    nzero = nvo - nreal
+    tid = np.arange(PASS_THREADS)
+    j = np.arange(8)
+    outs, srcs, ws = [], [], []
+
+    def write(py, px0, pxs, vs, src, wsrc):
+        # vector vs of packed pixels pxs: (len(pxs), threads, 8) values
+        base = (py * wp + px0 + pxs[:, None, None]) * out_c + 8 * vs[None, :, None] + j
+        outs.append(base.ravel())
+        srcs.append(np.broadcast_to(src, base.shape).ravel())
+        ws.append(np.broadcast_to(wsrc, base.shape).ravel())
+
+    for py in range(hp):
+        for bx in range(tiles):
+            px0 = bx * tpx
+            ncols = min(tpx, wp - px0)
+            e0 = [(4 * py + dy) * w + 4 * px0 for dy in range(4)]
+            sx = np.concatenate([_stage_span(e * c, 4 * ncols * c, pitch) for e in e0])
+            sw = np.concatenate([_stage_span(e, 4 * ncols, wpitch) for e in e0])
+            if nzero > 0:
+                pz = PASS_THREADS // nzero
+                for qq in range(pz):
+                    sel = tid[tid // nzero == qq]
+                    write(py, px0, np.arange(qq, ncols, pz), nreal + sel % nzero, -1, -1)
+            per = PASS_THREADS // nreal
+            v = tid[:per * nreal] % nreal
+            ch = 8 * v[:, None] + j                      # (threads, 8)
+            sub = ch // c
+            cc = ch - sub * c
+            dy, dx = sub >> 2, sub & 3
+            rows = np.take(e0, dy)
+            off = dy * pitch + (rows * c) % 8 + dx * c + cc
+            woff = dy * wpitch + rows % 8 + dx
+            for qq in range(per):
+                pxs = np.arange(qq, ncols, per)
+                sel = tid[:per * nreal] // nreal == qq
+                write(py, px0, pxs, v[sel], sx[off[sel][None] + 4 * c * pxs[:, None, None]],
+                      sw[woff[sel][None] + 4 * pxs[:, None, None]])
+    return np.concatenate(outs), np.concatenate(srcs), np.concatenate(ws)
+
+
+class StatsPlan(NamedTuple):
+    vectors: int  # 16-byte vectors a pixel a thread can own: cin / 8, or 2 * cin of the pack
+    ppb: int      # pixels a block reads at once
+    pixels: int   # pixels a block owns, a multiple of ppb * STATS_LOADS
+    blocks: int
+
+
+def act_stats_plan(npix: int, vectors: int, sms: int = SMS) -> StatsPlan:
+    """act_stats.cu's grid over ``npix`` pixels of ``vectors`` 16-byte
+    vectors each: contiguous pixel ranges, one a block, each a whole number of
+    the block's steps (``ppb`` pixels by :data:`STATS_LOADS` vectors), as many
+    blocks as the pixels need up to :data:`STATS_BLOCKS_PER_SM` an SM."""
+    ppb = PASS_THREADS // vectors
+    step = ppb * STATS_LOADS
+    blocks = max(1, min(-(-npix // step), STATS_BLOCKS_PER_SM * sms))
+    pixels = -(-(-(-npix // blocks)) // step) * step
+    return StatsPlan(vectors, ppb, pixels, -(-npix // pixels))
+
+
+def stats_plan(st: "ConvStage", sms: int = SMS) -> StatsPlan:
+    """:func:`act_stats_plan` of stage ``st``'s input."""
+    h, w = st.in_hw
+    if st.pack_c:
+        return act_stats_plan((h // 4) * (w // 4), 2 * st.cin, sms)
+    return act_stats_plan(h * w, st.cin // 8, sms)
+
+
+def stem_stats_map(hp: int, wp: int, cin: int, pack_c: int, sms: int = SMS):
+    """numpy replay of act_stats.cu's reads of a frame pack: ``(pixel,
+    channel, logical)``, one entry per value read, its packed pixel, its
+    channel in the pack and the logical channel it is counted under."""
+    plan = act_stats_plan(hp * wp, 2 * cin, sms)
+    nv, ppb = plan.vectors, plan.ppb
+    tid = np.arange(ppb * nv)
+    v, q = tid % nv, tid // nv
+    ch = 8 * v[:, None] + np.arange(8)         # (threads, 8)
+    logical = ch % cin
+    pix, chan, log = [], [], []
+    for b in range(plan.blocks):
+        start, end = b * plan.pixels, min((b + 1) * plan.pixels, hp * wp)
+        for qq in range(ppb):
+            pxs = np.arange(start + qq, end, ppb)
+            sel = q == qq
+            pix.append(np.broadcast_to(pxs[:, None, None], (len(pxs), sel.sum(), 8)).ravel())
+            chan.append(np.broadcast_to(ch[sel][None], (len(pxs), sel.sum(), 8)).ravel())
+            log.append(np.broadcast_to(logical[sel][None], (len(pxs), sel.sum(), 8)).ravel())
+    return np.concatenate(pix), np.concatenate(chan), np.concatenate(log)
 
 
 # ---------------------------------------------------------------------------
@@ -747,34 +916,57 @@ conv_stage.path_launches = dict.fromkeys(PATHS, 0)  # the launches by A-operand 
 conv_stage.stage_launches = {}  # the launches by stage name
 
 
+def launch_act_stats(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage,
+                     prologue: Optional[Prologue], skip_in: Optional[torch.Tensor],
+                     act_inv: Optional[torch.Tensor], max_out: torch.Tensor,
+                     clips_out: torch.Tensor, counters: Optional[torch.Tensor] = None) -> None:
+    """``rst_act_stats`` of ``lib`` on stage ``st``'s input over the grid of
+    :func:`stats_plan`, unchecked and uncounted (``act_stats`` checks its
+    tensors first; ``halo_profile`` gives it a profiled build and
+    ``counters``, the int64 buffer of its clock counters)."""
+    plan = stats_plan(st, _sm_count(x.device))
+    err = lib.rst_act_stats(
+        _ptr(x), *_prologue_args(prologue),
+        float(prologue.count) if prologue else 1.0,
+        float(prologue.eps) if prologue else 0.0,
+        int(prologue is not None), int(bool(prologue and prologue.relu)),
+        _ptr(skip_in), _ptr(act_inv), _ptr(max_out),
+        None if act_inv is None else _ptr(clips_out), _ptr(counters),
+        st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, plan.blocks, plan.pixels, _stream(x))
+    if err:
+        raise RuntimeError(f"act_stats {st.name}: CUDA error {err} at launch")
+
+
 def act_stats(x: torch.Tensor, st: ConvStage, prologue: Optional[Prologue] = None,
               skip_in: Optional[torch.Tensor] = None,
-              act_inv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              act_inv: Optional[torch.Tensor] = None,
+              max_out: Optional[torch.Tensor] = None,
+              clips_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per input channel of stage ``st`` on its input ``x`` (with the
-    stage's prologue and skip): (max |x'| f32, clip count int32 under the
-    ``act_inv`` row, zeros without it)."""
+    stage's prologue and skip): the max |x'| maxed into the (cin,) f32 row
+    ``max_out`` and, under the ``act_inv`` row, the clip count added into
+    the (cin,) int64 row ``clips_out``; returns the two rows.  Given both
+    rows (one row each of a caller's per-stage tables) a launch allocates
+    and fills nothing; a row not given starts from zeros.  Without
+    ``act_inv`` the clip row is left as it is."""
     if x.device.type == "cpu":
-        return act_stats_plain(x, st, prologue, skip_in, act_inv)
+        return act_stats_plain(x, st, prologue, skip_in, act_inv, max_out, clips_out)
     if x.device.type != "cuda":
         raise ValueError(f"act_stats runs on CUDA or the CPU, not {x.device}")
     dev = x.device
     _check_stage_inputs(x, st, prologue, skip_in)
     if act_inv is not None:
         _check(act_inv, f"{st.name} act_inv", torch.float32, (st.cin,), dev)
-    maxima = torch.zeros(st.cin, dtype=torch.float32, device=dev)
-    clips = torch.zeros(st.cin, dtype=torch.int32, device=dev)
-    err = _lib("act_stats.cu").rst_act_stats(
-        _ptr(x), *_prologue_args(prologue),
-        float(prologue.count) if prologue else 1.0,
-        float(prologue.eps) if prologue else 0.0,
-        int(prologue is not None), int(bool(prologue and prologue.relu)),
-        _ptr(skip_in), _ptr(act_inv), _ptr(maxima),
-        None if act_inv is None else _ptr(clips),
-        st.in_hw[0], st.in_hw[1], st.cin, st.pack_c, _stream(x))
-    if err:
-        raise RuntimeError(f"act_stats {st.name}: CUDA error {err} at launch")
+    if max_out is None:
+        max_out = torch.zeros(st.cin, dtype=torch.float32, device=dev)
+    if clips_out is None:
+        clips_out = torch.zeros(st.cin, dtype=torch.int64, device=dev)
+    _check(max_out, f"{st.name} max_out", torch.float32, (st.cin,), dev)
+    _check(clips_out, f"{st.name} clips_out", torch.int64, (st.cin,), dev)
+    launch_act_stats(_lib("act_stats.cu"), x, st, prologue, skip_in, act_inv, max_out,
+                     clips_out)
     act_stats.launches += 1
-    return maxima, clips
+    return max_out, clips_out
 
 
 act_stats.launches = 0
@@ -789,15 +981,18 @@ def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tens
     if x.device.type != "cuda":
         raise ValueError(f"finish runs on CUDA or the CPU, not {x.device}")
     h, w, c = x.shape
+    out_c = out.shape[2]
     dev = x.device
     _check(x, "finish input", torch.bfloat16, (h, w, c), dev)
-    if h % 4 or w % 4 or c > MAX_CIN or out.shape[2] < 16 * c:
+    if (h % 4 or w % 4 or c > MAX_CIN or out_c < 16 * c or out_c % 8
+            or out_c > 8 * PASS_THREADS):
         raise ValueError(f"finish: unsupported shapes {tuple(x.shape)} -> {tuple(out.shape)}")
-    _check(out, "finish output", torch.bfloat16, (h // 4, w // 4, out.shape[2]), dev)
+    _check(out, "finish output", torch.bfloat16, (h // 4, w // 4, out_c), dev)
     _check_prologue(prologue, "finish", c, (h, w), dev)
+    plan = finish_plan(h, w, c, prologue.dual, _sm_count(dev))
     err = _lib("finish.cu").rst_finish(
         _ptr(x), *_prologue_args(prologue), float(prologue.count),
-        float(prologue.eps), _ptr(out), h, w, c, out.shape[2], _stream(x))
+        float(prologue.eps), _ptr(out), h, w, c, out_c, plan.tpx, _stream(x))
     if err:
         raise RuntimeError(f"finish: CUDA error {err} at launch")
     finish.launches += 1

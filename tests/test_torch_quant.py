@@ -352,7 +352,7 @@ def test_act_stats_counts_each_element_once_under_the_clip_threshold():
     a = np.abs(x.float().numpy()).reshape(-1, st.cin)
     np.testing.assert_array_equal(maxima.numpy(), a.max(axis=0))
     np.testing.assert_array_equal(clips.numpy(), (a * np.float32(127 / 4) > 127.5).sum(axis=0))
-    assert clips.dtype == torch.int32 and clips.sum() > 0 and kernels.act_stats.launches == 0
+    assert clips.dtype == torch.int64 and clips.sum() > 0 and kernels.act_stats.launches == 0
     assert not act_stats(x, st)[1].any()
 
 
