@@ -164,6 +164,24 @@ Run from the repository root: ``python3 chip_smoke.py``.
    one ``remat=True`` step (20 + 20 launches, the same limits, the
    statistics updated once); step times with ``use_pallas`` on and off; one
    step with the MobileNet tower, finite.
+9. The video CLI, ``python -m realtime_style_transfer_torch.predict_video``,
+   driven in this process through ``predict_video.main`` on files written
+   here: 8 seeded 480x960 G-buffer sets of 17 channels (the port's own EXR
+   writer, no compression), seeded style images, a vertical ramp weight map
+   and an ``.npz`` checkpoint of the seeded full-width weights.  Runs:
+   ``--path fused`` bf16 one style; ``--quant int8 --scales_out``, then again
+   with ``--scales`` of that file; two styles with ``-w``; ``--path packed``
+   two styles (the packed path's default convs, as the JAX CLI's) under
+   ``--profile_dir``, which must write a ``torch.profiler`` trace.  Each run
+   writes one PNG a frame, every value finite; the fused run's and the
+   two-style run's frames equal ``video.stylize_video``'s on the same decoded
+   frames bit for bit (after ``image_to_uint8``), and the reload's equal the
+   calibrate run's; 16 ``conv_stage`` and 1 ``finish`` launches a frame (and
+   the warm-up), 16 ``act_stats`` a calibrate or check frame; the reload
+   passes the fingerprint and logs the saturation check.  Prints the CLI's
+   frame latency percentiles, its frame loop's rate, the native decode time
+   of one G-buffer set and the host's other steps of a frame (preprocess,
+   frame pack, PNG sink), each timed alone.
 
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
@@ -173,9 +191,11 @@ JSON object, the ``nvidia-smi`` name and power limit, and
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -203,6 +223,200 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def cli_phase(note, failures) -> dict:
+    """Phase 9: the video CLI from files on disk (see the module docstring).
+    Appends to ``failures``; returns each run's launches and latency and the
+    decode time."""
+    import logging
+
+    import PIL.Image
+    import torch
+
+    from realtime_style_transfer_torch import cli, predict_video
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.data.exr import write_gbuffer_fixture
+    from realtime_style_transfer_torch.data.hdr_screenshots import (
+        find_screenshots, iter_hdr_screenshots, load_unreal_hdr_screenshot)
+    from realtime_style_transfer_torch.data.imaging import (
+        image_to_uint8, load_image, preprocess_numpy_image)
+    from realtime_style_transfer_torch.models.inference import plan_from_config
+    from realtime_style_transfer_torch.ops import conv_matmul, kernels
+    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
+    from realtime_style_transfer_torch.video import stylize_video
+    from realtime_style_transfer_torch.weights import to_flax
+
+    t9 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = ShapeConfig.from_spec(SPEC)
+    h, w = cfg.input_dimensions
+    frames_dir = root / "frames"
+    for i in range(N_FRAMES):
+        write_gbuffer_fixture(frames_dir, f"frame{i:02d}", cfg.channels, h, w, seed=SEED + i,
+                              compression="none")
+    rng = np.random.default_rng(SEED)
+    style_pngs = [root / f"style{k}.png" for k in range(2)]
+    for p in style_pngs:
+        PIL.Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(p)
+    ramp = root / "ramp.png"
+    PIL.Image.fromarray(np.repeat(np.linspace(0, 255, h)[:, None], w, 1).astype(np.uint8)).save(
+        ramp)
+    ckpt = cli.save_variables(root / "weights.npz", to_flax(
+        cli.build_inference(cfg, rng_seed=SEED, device="cpu").state_dict()))
+    pngs = find_screenshots(frames_dir)
+    stacked = load_unreal_hdr_screenshot(pngs[0], cfg.channels)  # builds the native library
+    if stacked.shape != (h, w, 17):
+        failures.append(f"cli decoded set shape {stacked.shape}")
+    note(f"phase 9 inputs: {N_FRAMES} G-buffer sets {h}x{w}x17 (9 EXRs a set), written and "
+         f"the native library built in {time.perf_counter() - t9:.1f} s")
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    def run(label, n_styles, *extra):
+        """One ``predict_video.main`` call: its PNG frames, result, launches
+        and log lines."""
+        argv = ["--network_spec", SPEC, "-C", str(ckpt), "--frames_dir", str(frames_dir),
+                "-o", str(root / label), *extra]
+        for p in style_pngs[:n_styles]:
+            argv += ["-s", str(p)]
+        logs = Lines()
+        logging.getLogger("predict_video").addHandler(logs)
+        kernels.reset_launch_counts()
+        conv_matmul.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = predict_video.main(argv)
+        except SystemExit as e:
+            failures.append(f"cli {label}: SystemExit {e}")
+            return None
+        finally:
+            logging.getLogger("predict_video").removeHandler(logs)
+        torch.cuda.synchronize()
+        launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
+                    "act_stats": kernels.act_stats.launches,
+                    "conv_matmul": conv_matmul.conv_valid_matmul.launches}
+        imgs = [np.asarray(PIL.Image.open(p)) for p in sorted((root / label).glob("frame_*.png"))]
+        lat = out["latency"]
+        ok = (len(imgs) == N_FRAMES and out["nonfinite"] == 0
+              and all(im.shape == (h, w, 3) for im in imgs))
+        note(f"cli {label}: path {out['path']}, {len(imgs)} PNG frames, {out['nonfinite']} "
+             f"non-finite values, launches {launches}, frame latency p50 "
+             f"{lat['p50_ms']:.4f} ms p90 {lat['p90_ms']:.4f} ms (FrameTimer, {N_FRAMES} "
+             f"frames), frame loop {out['loop_s'] * 1e3:.1f} ms ({N_FRAMES / out['loop_s']:.2f} "
+             f"frames/s, decode included), call {time.perf_counter() - t0:.1f} s "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"cli {label} frames")
+        return dict(out=out, imgs=imgs, launches=launches, logs=logs.lines)
+
+    def check_launches(label, got, conv_stage, finish, act_stats):
+        want = {"conv_stage": conv_stage, "finish": finish, "act_stats": act_stats}
+        seen = {k: got[k] for k in want}
+        print(f"  cli {label} launches: {seen}, expected {want}")
+        if seen != want:
+            failures.append(f"cli {label} launch counts")
+
+    decoded = list(iter_hdr_screenshots(pngs, cfg.channels, cfg.content_shape))
+
+    def check_library(label, imgs, n_styles, weights=None):
+        """The run's frames against ``video.stylize_video`` on the same decoded
+        frames, with the model, engine and style the CLI builds: bit for bit."""
+        cfg_s = ShapeConfig.from_spec(SPEC, num_styles=n_styles)
+        model = cli.build_inference(cfg_s, dtype=torch.bfloat16)
+        fused = FusedTransfer(cli.load_variables(ckpt, model), plan_from_config(cfg_s),
+                              num_styles=n_styles)
+        ref = {}
+        stylize_video(model, fused, cli.load_styles(style_pngs[:n_styles], cfg_s), decoded,
+                      lambda i, frame: ref.__setitem__(i, image_to_uint8(frame)),
+                      style_weights=weights)
+        differ = sum(int((ref[i] != im).sum()) for i, im in enumerate(imgs))
+        same = sorted(ref) == list(range(len(imgs))) and differ == 0
+        print(f"  cli {label} frames vs video.stylize_video on the same decoded frames: "
+              f"{differ} uint8 values differ, bit-equal {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"cli {label} vs stylize_video")
+        return fused
+
+    def host_split(fused, imgs):
+        """The host's steps of one frame of the CLI's loop, each timed alone
+        on the 8 sets (ms, median): decode, preprocess and the frame pack run
+        on the prefetcher's thread, the PNG sink on the caller's."""
+        steps = {"decode": [], "preprocess": [], "pack": [], "png sink": []}
+        sink = predict_video.VideoSink(root / "sink_timing", 30, "7M", (h, w))
+        for p, img in zip(pngs, imgs):
+            t0 = time.perf_counter()
+            stacked = load_unreal_hdr_screenshot(p, cfg.channels)
+            t1 = time.perf_counter()
+            content = preprocess_numpy_image(stacked, cfg.content_shape)
+            t2 = time.perf_counter()
+            fused.pack_frame_np(content[None])
+            t3 = time.perf_counter()
+            sink.write(img / 255.0)
+            t4 = time.perf_counter()
+            for k, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                steps[k].append(dt * 1e3)
+        sink.close()
+        note("cli host steps a frame, each alone (median of 8, ms): "
+             + ", ".join(f"{k} {float(np.median(v)):.4f}" for k, v in steps.items())
+             + "; native decode of one 17-channel set (4 threads), all: "
+             + ", ".join(f"{v:.4f}" for v in steps["decode"]))
+        return steps
+
+    n_st = 16
+    runs = {}
+    runs["fused"] = a = run("fused", 1, "--path", "fused")
+    if a is not None:
+        check_launches("fused", a["launches"], n_st * (N_FRAMES + 1), N_FRAMES + 1, 0)
+        split = host_split(check_library("fused", a["imgs"], 1), a["imgs"])
+    scales = root / "scales.npz"
+    int8_counts = (n_st * (N_FRAMES + 1 + N_CAL), N_FRAMES + 1, n_st * N_CAL)
+    runs["int8 calibrate"] = b = run("int8", 1, "--path", "fused", "--quant", "int8",
+                                     "--scales_out", str(scales))
+    if b is not None:
+        check_launches("int8 calibrate", b["launches"], *int8_counts)
+        if not scales.exists() or not any("calibrated on" in m for m in b["logs"]):
+            failures.append("cli int8 calibrate: no scales file or log line")
+    runs["int8 reload"] = b2 = run("int8_reload", 1, "--path", "fused", "--quant", "int8",
+                                   "--scales", str(scales))
+    if b2 is not None:
+        check_launches("int8 reload", b2["launches"], *int8_counts)
+        checked = [m for m in b2["logs"] if "saturation check ok" in m]
+        print(f"  cli int8 reload: {checked or b2['logs']}")
+        if not checked:
+            failures.append("cli int8 reload: no passing saturation check logged")
+        if b is not None:
+            differ = sum(int((x != y).sum()) for x, y in zip(b["imgs"], b2["imgs"]))
+            print(f"  cli int8 reload frames vs the calibrate run's: {differ} uint8 values "
+                  f"differ {'ok' if differ == 0 else 'FAIL'}")
+            if differ:
+                failures.append("cli int8 reload vs calibrate frames")
+    runs["dual"] = c = run("dual", 2, "--path", "fused", "-w", str(ramp))
+    if c is not None:
+        check_launches("dual", c["launches"], n_st * (N_FRAMES + 1), N_FRAMES + 1, 0)
+        check_library("dual", c["imgs"], 2, load_image(ramp, (h, w, 1)))
+    runs["packed dual"] = d = run("packed_dual", 2, "--path", "packed", "--profile_dir",
+                                  str(root / "trace"))
+    if d is not None:
+        check_launches("packed dual", d["launches"], 0, 0, 0)
+        traces = list((root / "trace").glob("*.pt.trace.json"))
+        print(f"  cli packed dual --profile_dir: {[t.name for t in traces]}")
+        if not traces:
+            failures.append("cli --profile_dir wrote no trace")
+    shutil.rmtree(root, ignore_errors=True)
+    note(f"phase 9 total: {time.perf_counter() - t9:.1f} s")
+    return {"host_steps_ms": split if a is not None else None,
+            **{k: None if r is None else {"launches": r["launches"],
+                                          "latency": r["out"]["latency"],
+                                          "loop_s": r["out"]["loop_s"]}
+               for k, r in runs.items()}}
 
 
 def main() -> int:
@@ -1850,6 +2064,18 @@ def main() -> int:
          f"{10 * cin_t['bwd']:.4f} ms in torch ops")
     note(f"phase 8 total: {time.perf_counter() - t8:.1f} s")
 
+    # ---- phase 9: the video CLI from files on disk ----------------------------------
+    print(f"phase 9: python -m realtime_style_transfer_torch.predict_video on {SPEC} "
+          "G-buffer sets", flush=True)
+    cli_runs = cli_phase(note, failures)
+    print(f"phase 9 results: {json.dumps(cli_runs)}", flush=True)
+    if failed("phase 9"):
+        return 1
+
+    def cli_launches(kernel, *labels):
+        """The launches of ``kernel`` in phase 9's runs ``labels``."""
+        return {lab: cli_runs[lab]["launches"][kernel] for lab in labels}
+
     # ---- the kernel table -------------------------------------------------------
     def dual_sum(key):
         """A frame's conv_stage total in dual form: the prologue stages' dual
@@ -1901,7 +2127,10 @@ def main() -> int:
                 "f32_max_abs_err": f32_row["err"], "f32_ms": f32_row["ms"],
                 "f32_device_ms": f32_row["device_ms"],
                 "launch_rows": launch_rows, "frame_ms": frame_times,
-                "frame_profile": profiles}
+                "frame_profile": profiles,
+                "cli_launches": cli_launches("conv_matmul", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual"),
+                "cli_note": "the CLI's --path packed runs the packed path's default convs "
+                            "(F.conv2d), as the JAX CLI runs XLA's"}
 
     stats_rows = [r["stats"] for r in int8_rows.values()]
     stats_rows1 = [r["stats"] for r in int8_rows1]
@@ -2032,7 +2261,8 @@ def main() -> int:
               "rst1920_int8_launches": int8_run1["launches"]["conv_stage"],
               "rst1920_int8_library_ms": lib_res if isinstance(lib_res, float) else None,
               "rst1920_int8_frame_ms": int8_frame1_ms,
-              "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"]},
+              "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"],
+              "cli_launches": cli_launches("conv_stage", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual")},
              **rst1920(rows1), **rst1920(int8_rows1, "rst1920_int8_")),
         halo_entry(),
         stage_entry("conv_stage_stem", ("stem",), [r for r in window_odd if "stem" in r["name"]]),
@@ -2061,7 +2291,8 @@ def main() -> int:
          "rst1920_dual_device_ms": fin1_dual["device_ms"],
          "rst1920_dual_bound_ms": max(fin1_dual["bytes_ms"], fin1_dual["ops_ms"]),
          "rst1920_library_ms": None,
-         "rst1920_int8_launches": int8_run1["launches"]["finish"]},
+         "rst1920_int8_launches": int8_run1["launches"]["finish"],
+         "cli_launches": cli_launches("finish", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual")},
         dict({"name": "act_stats", "route": "cuda", "source": f"{SOURCES}/act_stats.cu",
               "replaces": f"{TPU_KERNEL}:929", "also_replaces": f"{TPU_KERNEL}:932",
               "launches": int8_runs["int8"]["launches"]["act_stats"],
@@ -2084,7 +2315,8 @@ def main() -> int:
               "rst1920_launches": int8_run1["launches"]["act_stats"],
               "rst1920_device_ms": sum(r["device_ms"] for r in stats_rows1),
               "rst1920_library_ms": None, "rst1920_calibrate_frame_ms": calibrate1_ms,
-              "rst1920_check_frame_ms": check1_ms},
+              "rst1920_check_frame_ms": check1_ms,
+              "cli_launches": cli_launches("act_stats", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual")},
              **rst1920(stats_rows1)),
         probe_entry("mm", 57),
         probe_entry("band", 139),

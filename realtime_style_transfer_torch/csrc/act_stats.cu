@@ -77,7 +77,8 @@ __host__ __device__ constexpr int ring_bytes(bool skip) {
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
 }
 
 // This thread's slot of vector u of ring stage s (x, then the skip's
@@ -102,7 +103,7 @@ __device__ __forceinline__ void issue(const Params& p, uint4* ring, int s, int p
       wv[u] = p.dual ? __bfloat162float(p.weight[px]) : 0.f;
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __global__ void __launch_bounds__(NTHREADS, 2) act_stats_kernel(const Params p) {
@@ -176,7 +177,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) act_stats_kernel(const Params p) 
     for (int s = 0; s < STAGES; ++s) {
       const int pb = p0 + s * chunk;
       if (pb >= end) break;
-      asm volatile("cp.async.wait_group 1;\n" ::);  // stage s has landed
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // stage s has landed
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         if (pb + u * ppb >= end) break;

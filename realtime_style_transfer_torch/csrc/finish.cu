@@ -37,7 +37,8 @@ constexpr int MAX_C = 128;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
 }
 
 // Copy values [e0, e0 + n) of `src` into `dst` from the 16-byte boundary at
@@ -88,7 +89,7 @@ __global__ void __launch_bounds__(NTHREADS) finish_kernel(
     stage_span(sx + dy * pitch, x, (yy * W + 4 * px0) * C, 4 * ncols * C, tid);
     if (dual) stage_span(sw + dy * wpitch, weight, yy * W + 4 * px0, 4 * ncols, tid);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
   if (tid < C) {
     const float mean = sum / count;
     const float var = __fsub_rn(sq / count, __fmul_rn(mean, mean));
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(NTHREADS) finish_kernel(
       for (int px = qz; px < ncols; px += pz)
         row[px * nvo + nreal + tid % nzero] = make_uint4(0, 0, 0, 0);
   }
-  asm volatile("cp.async.wait_all;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
   // the real vectors: thread tid owns vector v of every p-th packed pixel

@@ -10,11 +10,12 @@ set-up.  Two styles are blended per pixel by a static (H, W, 1) weight map of
 the second style, all zeros (the first style everywhere) unless one is given,
 as in the JAX CLI.
 
-Two engines: ``--path fused`` is :class:`..ops.fused_transfer.FusedTransfer`
+Three engines: ``--path fused`` is :class:`..ops.fused_transfer.FusedTransfer`
 (``prepare_style`` once, the host frame pack per frame, the stage kernels);
 ``--path packed`` is :class:`..models.transfer_packed.PackedTransfer` (the
-frame as it is, the packed path with its ``conv_backend``).
-:func:`choose_path` is the CLI's ``--path auto`` rule.
+frame as it is, the packed path with its ``conv_backend``); ``--path
+standard`` is :class:`EagerEngine` (the frame as it is, the eager inference
+net's ``stylize``).  :func:`choose_path` is the CLI's ``--path auto`` rule.
 
 ``quant="int8"`` is the CLI's ``--quant int8`` deploy flow
 (``predict_video_using_checkpoint.py:159-258``) without file IO, fused path
@@ -22,6 +23,8 @@ only: the first ``calibration_frames`` frames calibrate the int8 scales on the
 given bf16 engine, or, given ``act_scales`` (say from :func:`..ops.
 fused_transfer.load_act_scales`), saturation-check them; then an int8 engine
 is built and every frame, the calibration frames first, streams through it.
+``on_scales`` sees the scales (and the saturation report) before the first
+frame streams, so the CLI can warn and save them then.
 """
 
 from __future__ import annotations
@@ -58,29 +61,58 @@ def choose_path(config: ShapeConfig, plan: TransferPlan, device) -> str:
     return "fused" if fused_ok else "packed"
 
 
+class EagerEngine:
+    """The ``--path standard`` engine: the eager inference net's ``stylize``
+    on one batch of frames, in the model's dtype, called as a
+    :class:`PackedTransfer` is."""
+
+    quant = False
+
+    def __init__(self, model: StyleTransferInference, num_styles: int):
+        self.model = model
+        self.plan = model.plan
+        self.num_styles = num_styles
+        self.device = next(model.parameters()).device
+
+    def __call__(self, content: torch.Tensor, style_params: torch.Tensor,
+                 style_weights: Optional[torch.Tensor] = None, *,
+                 conv_backend: str = "auto") -> torch.Tensor:
+        if conv_backend != "auto":
+            raise ValueError("the eager net takes conv_backend='auto'")
+        with torch.no_grad():
+            return self.model.stylize(content, style_params, style_weights).float()
+
+
 def stylize_video(model: StyleTransferInference,
-                  engine: Union[FusedTransfer, PackedTransfer],
+                  engine: Union[FusedTransfer, PackedTransfer, EagerEngine],
                   style_image: Union[np.ndarray, Sequence[np.ndarray]],
                   frames: Iterable[np.ndarray],
                   sink: Callable[[int, np.ndarray], None], *,
                   style_weights: Optional[np.ndarray] = None, depth: int = 3,
                   max_frames: Optional[int] = None, variables=None,
                   quant: Optional[str] = None, act_scales=None,
-                  calibration_frames: int = 4, conv_backend: str = "auto") -> Dict[str, object]:
+                  calibration_frames: int = 4, conv_backend: str = "auto",
+                  style_params: Optional[torch.Tensor] = None,
+                  on_scales: Optional[Callable] = None) -> Dict[str, object]:
     """Stream (H, W, C) f32 ``frames`` through ``engine`` with the style of
     the (H, W, 3) ``style_image`` (a sequence of two for a dual engine,
     blended by the (H, W, 1) ``style_weights``); ``sink(i, frame)`` gets each
-    (H, W, 3) f32 result.  Returns the (1, S, P) style params and each frame's
-    host latency (seconds, stylize + device-to-host copy).
+    (H, W, 3) f32 result.  Returns the (1, S, P) style params, each frame's
+    host latency (seconds, stylize + device-to-host copy) and the frame
+    loop's wall time (``loop_s``: decode, host preparation and sink
+    included).
 
-    ``engine`` is a :class:`FusedTransfer` (the fused path) or a
+    ``engine`` is a :class:`FusedTransfer` (the fused path), a
     :class:`PackedTransfer` (the packed path, whose convs ``conv_backend``
-    selects: 'auto', 'xla' or 'pallas').  ``quant="int8"`` needs the fused
+    selects: 'auto', 'xla' or 'pallas') or an :class:`EagerEngine`.  Given
+    ``style_params`` ((1, S, P), from ``model.predict_style_params``), the
+    predictor is not run again.  ``quant="int8"`` needs the fused
     path, the transfer ``variables`` and a bf16 engine; the result also holds
     the ``act_scales`` deployed, ``saturation`` (the report of
     ``check_act_saturation`` on given scales, else None) and the int8
-    ``engine``."""
-    packed_path = isinstance(engine, PackedTransfer)
+    ``engine``; ``on_scales(act_scales, saturation, n_frames)`` is called with
+    them before the first frame streams."""
+    packed_path = not isinstance(engine, FusedTransfer)
     dev = engine.device
     styles = np.asarray(style_image, np.float32)
     if styles.ndim == 3:
@@ -107,10 +139,11 @@ def stylize_video(model: StyleTransferInference,
         h, w, _ = engine.plan.output_shape
         weights = (np.zeros((h, w, 1), np.float32) if style_weights is None
                    else np.asarray(style_weights, np.float32))[None]
-    with torch.no_grad():
-        style = torch.as_tensor(styles, device=dev)
-        style_params = model.predict_style_params(style[None])  # (1, S, P)
-    frames = iter(frames) if max_frames is None else itertools.islice(frames, max_frames)
+    if style_params is None:
+        with torch.no_grad():
+            style = torch.as_tensor(styles, device=dev)
+            style_params = model.predict_style_params(style[None])  # (1, S, P)
+    frames = iter(frames)
     result: Dict[str, object] = {}
 
     if packed_path:
@@ -145,6 +178,8 @@ def stylize_video(model: StyleTransferInference,
             prepared = fused.prepare_style(style_params, weights)
             result.update(act_scales=np.asarray(act_scales, np.float32), saturation=report,
                           engine=fused)
+            if on_scales is not None:
+                on_scales(result["act_scales"], report, len(calibration))
         prepare = fused.pack_frame_np
 
         def stylize(packed: torch.Tensor) -> torch.Tensor:
@@ -154,14 +189,18 @@ def stylize_video(model: StyleTransferInference,
     stylize(warm.to(dev)).cpu()
 
     def batched():
-        for frame in frames:
+        # after calibration, as the JAX CLI: the first calibration_frames
+        # frames calibrate even when max_frames keeps fewer
+        for frame in itertools.islice(frames, max_frames):
             yield np.asarray(frame, np.float32)[None]
 
     latencies = []
+    loop_start = time.perf_counter()
     prefetcher = DevicePrefetcher(batched(), depth, device=dev, prepare=prepare)
     for i, item in enumerate(prefetcher):
         start = time.perf_counter()
         frame = stylize(item)[0].cpu().numpy()
         latencies.append(time.perf_counter() - start)
         sink(i, frame)
-    return dict(result, style_params=style_params, latency_s=latencies)
+    return dict(result, style_params=style_params, latency_s=latencies,
+                loop_s=time.perf_counter() - loop_start)
