@@ -143,27 +143,35 @@ Run from the repository root: ``python3 chip_smoke.py``.
    largest value of its f32 plain version, timed with its blocks per SM.
    Two calls of one packed frame (one style, two, rst-1920 two) give the same
    bits.
-8. The training step with the CIN kernel (``csrc/cin.cu``, TPU kernel row 2).
-   ``cin`` against its plain version at the training step's (4, 120, 240, 128)
-   and the JAX test's shapes, bf16 (phase 2's limits) and f32 (rtol 1e-4 +
-   atol 1e-4), the stats within rtol 1e-5 of the plain f32 sums, two calls
-   bit-equal, one stats and one normalize launch a call from 64 channels on
-   and none below; the backward against ``torch.autograd`` through the plain
-   version's ops (f32: rtol 1e-3 + atol 1e-3 x max; bf16: phase 2's limits);
-   the launches, ``cin()``, the plain version, the backward and
-   ``F.instance_norm`` bf16 timed beside both bounds (one read + one write,
-   and the design's read + read + write).  Then
-   ``make_style_transfer_training_model(rst-960-120-128-17, vgg, bf16,
-   split, use_pallas=True)`` on a seeded batch of 4: a warm-up step and 4
-   timed ``train_step``s (10 stats + 10 normalize launches a step, no
-   ``conv_stage``), an ``eval_step``, every metric finite, the batch norm
-   statistics moved, peak memory; the same step with the kernel's plain
-   version (loss components within rtol 0.05 + atol 0.02; updated parameters
-   within 6.4e-3, two opposite first-step RMSprop updates, and at most 2% of
-   them more than 1e-3 apart, beside the plain step's spread against itself);
-   one ``remat=True`` step (20 + 20 launches, the same limits, the
-   statistics updated once); step times with ``use_pallas`` on and off; one
-   step with the MobileNet tower, finite.
+8. The training step with the CIN kernels (``csrc/cin.cu``, TPU kernel row
+   2, and its backward).  The forward kernel (``cin_forward``, one launch)
+   against its plain version at the training step's (4, 120, 240, 128), the
+   JAX test's shapes, an odd (3, 17, 23, 72) and a (1, 480, 960, 128) whose
+   blocks read most rows twice, bf16 (phase 2's limits) and f32 (rtol 1e-4 +
+   atol 1e-4), the moments within rtol 1e-5 of the plain f32 sums, output
+   and moments bit-equal over two calls, one forward launch a ``cin()`` call
+   from 64 channels on and none below; the backward kernel
+   (``cin_backward``) against its plain version on the same moments (dx:
+   phase 2's limits in bf16, rtol 1e-3 + atol 1e-3 x max in f32; dscale,
+   dbias: rtol 1e-3 + atol 1e-3 x max), dx, dscale and dbias bit-equal over
+   two calls, and from 64 channels the gradients of ``cin()`` (one forward
+   and one backward launch) against ``torch.autograd`` through the plain
+   version's ops; the forward, ``cin()``, the backward, both plain versions,
+   the torch-ops backward that recomputes the moments and
+   ``F.instance_norm`` bf16 timed by CUDA events and by graph replay beside
+   the bytes bounds.  Then ``make_style_transfer_training_model(
+   rst-960-120-128-17, vgg, bf16, split, use_pallas=True)`` on a seeded
+   batch of 4: a warm-up step and 4 timed ``train_step``s (10 forward + 10
+   backward launches a step, no ``conv_stage``), an ``eval_step``, every
+   metric finite, the batch norm statistics moved, peak memory; the same
+   step with the kernels' plain versions (loss components within rtol 0.05 +
+   atol 0.02; updated parameters within 6.4e-3, two opposite first-step
+   RMSprop updates, and at most 2% of them more than 1e-3 apart, beside the
+   plain step's spread against itself); one ``remat=True`` step (20 forward
+   + 10 backward launches, the same limits, the statistics updated once);
+   step times with ``use_pallas`` off, and with the kernels and their plain
+   versions in turns (4 pairs, A B A B, both medians); one step with the
+   MobileNet tower, finite.
 9. The video CLI, ``python -m realtime_style_transfer_torch.predict_video``,
    driven in this process through ``predict_video.main`` on files written
    here: 8 seeded 480x960 G-buffer sets of 17 channels (the port's own EXR
@@ -1837,94 +1845,144 @@ def main() -> int:
         return (x, torch.rand((b_, 1, 1, c_), generator=gen, device=dev) + 0.5,
                 torch.randn((b_, 1, 1, c_), generator=gen, device=dev))
 
+    def cin_rows(scale, bias):
+        b_, c_ = scale.shape[0], scale.shape[-1]
+        return scale.reshape(b_, c_).contiguous(), bias.reshape(b_, c_).contiguous()
+
     def check_cin(label, shape, dtype):
-        """cin against its plain version (phase 2's bf16 limits, JAX's f32
-        limit), two calls bit-equal, the stats within rtol 1e-5 (+ 1e-6 of
-        the largest, f32 noise of a mean near zero) of the plain f32 sums and
-        bit-equal between calls, and the routing: C >= 64 takes one stats and
-        one normalize launch a call, C < 64 none."""
+        """The forward kernel (cin_forward) against its plain version (phase
+        2's bf16 limits, JAX's f32 limit), the moments within rtol 1e-5 (+
+        1e-6 of the largest, f32 noise of a mean near zero) of the plain f32
+        sums, output and moments bit-equal over two calls; the routing of
+        cin(): C >= 64 takes one forward launch a call, C < 64 none."""
         x, scale, bias = cin_inputs(shape, dtype)
+        rows = cin_rows(scale, bias)
         cin_mod.reset_launch_counts()
-        got = cin_mod.cin(x, scale, bias)
-        again = cin_mod.cin(x, scale, bias)
-        counts = (cin_mod.cin_stats.launches, cin_mod.cin_normalize.launches)
-        want = cin_mod.cin_plain(x, scale, bias)
-        torch.cuda.synchronize()
+        cin_mod.cin(x, scale, bias)
+        cin_mod.cin(x, scale, bias)
+        counts = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
         routed = shape[-1] >= cin_mod.MIN_CHANNELS
-        print(f"cin {label}: {tuple(shape)} {str(dtype)[6:]}, launches {counts} (expected "
-              f"{(2, 2) if routed else (0, 0)})")
-        if counts != ((2, 2) if routed else (0, 0)):
+        got, stats = cin_mod.cin_forward(x, *rows, eps_cin)
+        again, stats2 = cin_mod.cin_forward(x, *rows, eps_cin)
+        want, want_stats = cin_mod.cin_forward_plain(x, *rows, eps_cin)
+        torch.cuda.synchronize()
+        cplan = cin_mod._launch_plan(x, False)
+        print(f"cin {label}: {tuple(shape)} {str(dtype)[6:]}, {cplan.blocks} blocks, "
+              f"{cplan.pix_sm} of {cplan.rows * -(-shape[0] * cplan.parts // cplan.blocks)} rows "
+              f"a block held; cin() launches (forward, backward) {counts} (expected "
+              f"{(2, 0) if routed else (0, 0)})")
+        if counts != ((2, 0) if routed else (0, 0)):
             failures.append(f"cin {label} launches")
         if dtype == bf16:
             err = close(f"cin {label}", got, want, 1.6e-2, 1e-2)
         else:
             err = close_f32(f"cin {label}", got, want)
-        same = torch.equal(got, again)
-        if routed:
-            st_a, st_b = cin_mod.cin_stats(x), cin_mod.cin_stats(x)
-            torch.cuda.synchronize()
-            close(f"cin {label} stats", st_a, cin_mod.cin_stats_plain(x), 1e-5, 1e-6)
-            same = same and torch.equal(st_a, st_b)
-        print(f"  cin {label}: two calls bit-equal (output and stats) {'ok' if same else 'FAIL'}")
+        close(f"cin {label} moments", stats, want_stats, 1e-5, 1e-6)
+        same = torch.equal(got, again) and torch.equal(stats, stats2)
+        print(f"  cin {label}: two calls bit-equal (output and moments) {'ok' if same else 'FAIL'}")
         if not same:
             failures.append(f"cin {label} repeat")
         return err
 
     def check_cin_backward(label, shape, dtype):
-        """The custom backward against torch.autograd through the plain
-        version's torch ops: f32 at rtol 1e-3 + atol 1e-3 x max, bf16 (whose
-        dx rounds at 2^-8) at phase 2's limits."""
+        """The backward kernel (cin_backward) against its plain version on
+        the same saved moments: dx at phase 2's limits in bf16 (it rounds at
+        2^-8) and rtol 1e-3 + atol 1e-3 x max in f32, dscale and dbias (f32
+        sums) at rtol 1e-3 + atol 1e-3 x max; dx, dscale and dbias bit-equal
+        over two calls; and for C >= 64 the gradients of cin() through its
+        custom backward against torch.autograd through the plain version's
+        ops, at the same limits."""
         x, scale, bias = cin_inputs(shape, dtype)
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        b_, _, _, c_ = shape
-        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
-        got = torch.autograd.grad(cin_mod.cin(*leaves), leaves, g)
-        ref = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
-        y = cin_mod.cin_normalize_plain(ref[0], cin_mod.cin_stats_plain(ref[0]),
-                                        ref[1].reshape(b_, c_), ref[2].reshape(b_, c_), eps_cin)
-        want = torch.autograd.grad(y, ref, g)
+        rows = cin_rows(scale, bias)
+        _, stats = cin_mod.cin_forward(x, *rows, eps_cin)
+        got = cin_mod.cin_backward(x, g, stats, rows[0], eps_cin)
+        again = cin_mod.cin_backward(x, g, stats, rows[0], eps_cin)
+        want = cin_mod.cin_backward_plain(x, g, stats, rows[0], eps_cin)
         torch.cuda.synchronize()
-        rtol, atol = (1e-3, 1e-3) if dtype == f32 else (1.6e-2, 1e-2)
-        return max(close(f"cin backward {label} d{n}", a, w, rtol, atol)
-                   for n, a, w in zip(("x", "scale", "bias"), got, want))
+        dx_tol = (1e-3, 1e-3) if dtype == f32 else (1.6e-2, 1e-2)
+        errs = [close(f"cin backward {label} dx", got[0], want[0], *dx_tol)]
+        errs += [close(f"cin backward {label} d{n}", a, w, 1e-3, 1e-3)
+                 for n, a, w in zip(("scale", "bias"), got[1:], want[1:])]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  cin backward {label}: two calls bit-equal (dx, dscale, dbias) "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"cin backward {label} repeat")
+        if shape[-1] >= cin_mod.MIN_CHANNELS:
+            b_, _, _, c_ = shape
+            leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+            cin_mod.reset_launch_counts()
+            auto = torch.autograd.grad(cin_mod.cin(*leaves), leaves, g)
+            counts = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
+            ref = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+            y = cin_mod.cin_normalize_plain(ref[0], cin_mod.cin_stats_plain(ref[0]),
+                                            ref[1].reshape(b_, c_), ref[2].reshape(b_, c_),
+                                            eps_cin)
+            want_auto = torch.autograd.grad(y, ref, g)
+            torch.cuda.synchronize()
+            print(f"  cin {label} through autograd: launches {counts} (expected (1, 1))")
+            if counts != (1, 1):
+                failures.append(f"cin {label} autograd launches")
+            errs += [close(f"cin autograd {label} d{n}", a, w, *(dx_tol if n == "x" else
+                                                                  (1e-3, 1e-3)))
+                     for n, a, w in zip(("x", "scale", "bias"), auto, want_auto)]
+        return max(errs)
 
     slice_shape = (4, plan.bottleneck_res_y, 2 * plan.bottleneck_res_y,
                    plan.bottleneck_num_filters)
+    # the odd shape fits no vector or part evenly; the large one keeps a
+    # quarter of each block's rows in shared memory and reads the rest twice
+    cin_shapes = (("slice", slice_shape), ("test a", (2, 8, 16, 128)),
+                  ("test b", (1, 12, 10, 32)), ("test c", (2, 6, 4, 3)),
+                  ("odd", (3, 17, 23, 72)), ("second read", (1, 480, 960, 128)))
     cin_errs = [check_cin(f"{label} {str(dt)[6:]}", shape, dt)
-                for label, shape in (("slice", slice_shape), ("test a", (2, 8, 16, 128)),
-                                     ("test b", (1, 12, 10, 32)), ("test c", (2, 6, 4, 3)))
-                for dt in (bf16, f32)]
-    bwd_err = max(check_cin_backward("slice f32", slice_shape, f32),
-                  check_cin_backward("slice bf16", slice_shape, bf16))
+                for label, shape in cin_shapes for dt in (bf16, f32)]
+    bwd_err = max(check_cin_backward(f"{label} {str(dt)[6:]}", shape, dt)
+                  for label, shape in cin_shapes for dt in (bf16, f32))
     if failed("phase 8, cin"):
         return 1
 
     x8, scale8, bias8 = cin_inputs(slice_shape, bf16)
-    rows8 = (scale8.reshape(4, -1).contiguous(), bias8.reshape(4, -1).contiguous())
-    stats8 = cin_mod.cin_stats(x8)
+    rows8 = cin_rows(scale8, bias8)
+    _, stats8 = cin_mod.cin_forward(x8, *rows8, eps_cin)
     g8 = torch.randn(slice_shape, generator=gen, device=dev).to(bf16)
     x8_nchw = x8.permute(0, 3, 1, 2).contiguous()
-    cin_t = {
-        "stats": cuda_ms(lambda: cin_mod.cin_stats(x8), 50),
-        "normalize": cuda_ms(lambda: cin_mod.cin_normalize(x8, stats8, *rows8, eps_cin), 50),
-        "cin": cuda_ms(lambda: cin_mod.cin(x8, scale8, bias8), 50),
-        "plain": cuda_ms(lambda: cin_mod.cin_plain(x8, scale8, bias8), 20),
-        "bwd": cuda_ms(lambda: cin_mod.cin_backward(x8, scale8, g8, eps_cin), 20),
-        "library": yardstick("F.instance_norm", lambda: F.instance_norm(
-            x8_nchw, weight=rows8[0][0], bias=rows8[1][0], eps=eps_cin)),
+
+    def instance_norm():
+        return F.instance_norm(x8_nchw, weight=rows8[0][0], bias=rows8[1][0], eps=eps_cin)
+
+    calls8 = {
+        "forward": lambda: cin_mod.cin_forward(x8, *rows8, eps_cin),
+        "cin": lambda: cin_mod.cin(x8, scale8, bias8),
+        "backward": lambda: cin_mod.cin_backward(x8, g8, stats8, rows8[0], eps_cin),
+        "plain forward": lambda: cin_mod.cin_forward_plain(x8, *rows8, eps_cin),
+        "plain backward": lambda: cin_mod.cin_backward_plain(x8, g8, stats8, rows8[0], eps_cin),
+        "torch-ops backward": lambda: cin_mod.cin_backward_plain(x8, g8, None, rows8[0],
+                                                                 eps_cin),
     }
-    lib8 = (cin_t["library"] if isinstance(cin_t["library"], str)
-            else f"{cin_t['library']:.4f} ms")
+    cin_ev = {k: cuda_ms(fn, 50 if "plain" not in k and "ops" not in k else 10)
+              for k, fn in calls8.items()}
+    cin_gr = {k: graph_ms(fn, 20 if "plain" not in k and "ops" not in k else 5)
+              for k, fn in calls8.items()}
+    cin_ev["library"] = yardstick("F.instance_norm", instance_norm)
+    cin_gr["library"] = graph_ms(instance_norm)
+    lib8 = (cin_ev["library"] if isinstance(cin_ev["library"], str)
+            else f"{cin_ev['library']:.4f} ms")
     work8 = cin_work(*slice_shape, 2)
-    cin_bounds = {k: bound_ms(*work8[k], "f32") for k in work8}
-    two_kernel_bound = sum(cin_bounds[k][0] for k in ("stats", "normalize"))
-    note(f"cin {slice_shape} bf16: stats {cin_t['stats']:.4f} ms (bound "
-         f"{cin_bounds['stats'][0]:.4f}), normalize {cin_t['normalize']:.4f} ms (bound "
-         f"{cin_bounds['normalize'][0]:.4f}); cin() with its allocations {cin_t['cin']:.4f} ms; "
-         f"bound of the function {cin_bounds['function'][0]:.4f} ms (bytes, one read + one "
-         f"write), of the two-kernel design {two_kernel_bound:.4f} ms; plain "
-         f"{cin_t['plain']:.4f} ms; F.instance_norm bf16 (4, 128, 120, 240) {lib8}; "
-         f"backward (torch ops) {cin_t['bwd']:.4f} ms")
+    cin_bounds = {k: max(bound_ms(work8[k][0], 0.0, "f32"), bound_ms(0.0, work8[k][1]))
+                  for k in work8}
+    note(f"cin {slice_shape} bf16 (graph; CUDA events in brackets): forward "
+         f"{cin_gr['forward']:.4f} ms ({cin_ev['forward']:.4f}), bound "
+         f"{cin_bounds['forward'][0]:.4f} ({cin_bounds['forward'][1]}); cin() "
+         f"{cin_gr['cin']:.4f} ({cin_ev['cin']:.4f}); backward {cin_gr['backward']:.4f} ms "
+         f"({cin_ev['backward']:.4f}), bound {cin_bounds['backward'][0]:.4f} "
+         f"({cin_bounds['backward'][1]}); plain forward {cin_gr['plain forward']:.4f} "
+         f"({cin_ev['plain forward']:.4f}), plain backward {cin_gr['plain backward']:.4f} "
+         f"({cin_ev['plain backward']:.4f}); the torch-ops backward that recomputes the "
+         f"moments (the parent's) {cin_gr['torch-ops backward']:.4f} "
+         f"({cin_ev['torch-ops backward']:.4f}); F.instance_norm bf16 (4, 128, 120, 240) "
+         f"{cin_gr['library']:.4f} ({lib8})")
 
     print(f"phase 8, train: make_style_transfer_training_model({SPEC}, vgg, bf16, split, "
           "use_pallas=True), batch 4", flush=True)
@@ -1996,10 +2054,10 @@ def main() -> int:
     state1, metrics1 = tm_k.train_step(state0, batch8)          # warm-up
     state_k, metrics_k, step_ms = timed_steps(tm_k, state1, K8)
     torch.cuda.synchronize()
-    train_launches = (cin_mod.cin_stats.launches, cin_mod.cin_normalize.launches)
+    train_launches = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     want_launches = (10 * (K8 + 1), 10 * (K8 + 1))
-    print(f"train: cin launches (stats, normalize) over {K8 + 1} steps {train_launches}, "
+    print(f"train: cin launches (forward, backward) over {K8 + 1} steps {train_launches}, "
           f"expected {want_launches} (10 residual CINs of 128 channels a step; the expand "
           f"CINs of 32, 16 and 3 channels take the plain CIN); conv_stage "
           f"{kernels.conv_stage.launches} (expected 0)")
@@ -2030,10 +2088,10 @@ def main() -> int:
     tm_r = trainer(use_pallas=True, remat=True)
     remat1, remat_metrics1 = tm_r.train_step(state0, batch8)
     torch.cuda.synchronize()
-    remat_launches = (cin_mod.cin_stats.launches, cin_mod.cin_normalize.launches)
-    print(f"remat: cin launches {remat_launches}, expected (20, 20) (the recompute runs the "
+    remat_launches = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
+    print(f"remat: cin launches {remat_launches}, expected (20, 10) (the recompute runs the "
           "forward again)")
-    if remat_launches != (20, 20):
+    if remat_launches != (20, 10):
         failures.append("remat launch counts")
     metrics_close("remat step vs plain step", remat_metrics1, plain_metrics1)
     remat_diff, remat_far = param_diff(remat1, plain1)
@@ -2049,8 +2107,13 @@ def main() -> int:
     tm_off = trainer(use_pallas=False)
     off1, _ = tm_off.train_step(tm_off.init_state(), batch8)
     _, _, step_off_ms = timed_steps(tm_off, off1, K8)
-    _, _, step_plain_ms = timed_steps(tm_k, state1, K8, plain=True)
     del tm_off
+    # the step with the kernels and with their plain versions in turns, A B A B
+    turns = {False: [], True: []}
+    for _ in range(4):
+        for plain_turn in (False, True):
+            turns[plain_turn].append(timed_steps(tm_k, state1, K8, plain=plain_turn)[2])
+    step_turn_ms = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
     tm_m = trainer(use_pallas=True, loss_extractor="mobilenet")
     _, metrics_m = tm_m.train_step(tm_m.init_state(), batch8)
     finite("MobileNet tower step", metrics_m)
@@ -2058,10 +2121,15 @@ def main() -> int:
     if failed("phase 8, train"):
         return 1
     note(f"train step {SPEC}, batch 4, bf16, VGG split tower: use_pallas=True "
-         f"{step_ms:.4f} ms, use_pallas=False {step_off_ms:.4f} ms, the kernel's plain "
-         f"version {step_plain_ms:.4f} ms; peak memory {peak_gb:.2f} GiB; cin a step "
-         f"{10 * (cin_t['stats'] + cin_t['normalize']):.4f} ms of kernels + backward "
-         f"{10 * cin_t['bwd']:.4f} ms in torch ops")
+         f"{step_ms:.4f} ms, use_pallas=False {step_off_ms:.4f} ms; peak memory "
+         f"{peak_gb:.2f} GiB; in turns (4 pairs of {K8} steps, kernel then plain): kernel "
+         + ", ".join(f"{v:.4f}" for v in turns[False]) + " ms, median "
+         f"{step_turn_ms[False]:.4f}; the kernels' plain versions "
+         + ", ".join(f"{v:.4f}" for v in turns[True]) + f" ms, median {step_turn_ms[True]:.4f}; "
+         f"cin a step 10 x (forward {cin_gr['forward']:.4f} + backward "
+         f"{cin_gr['backward']:.4f}) = {10 * (cin_gr['forward'] + cin_gr['backward']):.4f} ms "
+         f"of kernels (graph), against 10 x {cin_gr['plain forward'] + cin_gr['plain backward']:.4f}"
+         f" ms of plain versions")
     note(f"phase 8 total: {time.perf_counter() - t8:.1f} s")
 
     # ---- phase 9: the video CLI from files on disk ----------------------------------
@@ -2342,22 +2410,39 @@ def main() -> int:
          "also_replaces": f"{SMEM_PROBE}:119"},
         {"name": "cin", "route": "cuda", "source": f"{SOURCES}/cin.cu",
          "replaces": f"{CIN_KERNEL}:52", "also_replaces": f"{CIN_KERNEL}:64",
-         "launches": sum(train_launches), "stats_launches": train_launches[0],
-         "normalize_launches": train_launches[1],
-         "per": f"one CIN of the training step's {slice_shape} bf16 activation: one stats "
-                "and one normalize launch; launches over the warm-up and "
-                f"{K8} timed train steps",
-         "max_abs_err": max(cin_errs), "ms": cin_t["stats"] + cin_t["normalize"],
-         "stats_ms": cin_t["stats"], "normalize_ms": cin_t["normalize"],
-         "plain_ms": cin_t["plain"], "bound_ms": cin_bounds["function"][0],
-         "bound_by": cin_bounds["function"][1], "two_kernel_bound_ms": two_kernel_bound,
-         "library_ms": cin_t["library"] if isinstance(cin_t["library"], float) else None,
+         "launches": train_launches[0],
+         "per": f"one CIN forward of the training step's {slice_shape} bf16 activation, one "
+                "launch; launches over the warm-up and "
+                f"{K8} timed train steps (ms: wrapper calls timed with CUDA events; device_ms: "
+                "a CUDA graph's replay)",
+         "max_abs_err": max(cin_errs), "ms": cin_ev["forward"], "device_ms": cin_gr["forward"],
+         "cin_call_ms": cin_ev["cin"], "plain_ms": cin_ev["plain forward"],
+         "plain_device_ms": cin_gr["plain forward"], "bound_ms": cin_bounds["forward"][0],
+         "bound_by": cin_bounds["forward"][1],
+         "library_ms": cin_ev["library"] if isinstance(cin_ev["library"], float) else None,
+         "library_device_ms": cin_gr["library"],
          "library_note": "F.instance_norm bf16 on the same (4, 128, 120, 240) values with "
                          "one image's affine",
-         "bwd_ms": cin_t["bwd"], "bwd_max_abs_err": bwd_err, "train_step_ms": step_ms,
-         "train_step_no_kernel_ms": step_off_ms, "train_step_plain_cin_ms": step_plain_ms,
-         "train_peak_gib": peak_gb, "remat_launches": sum(remat_launches),
+         "train_step_ms": step_ms, "train_step_no_kernel_ms": step_off_ms,
+         "train_step_turns_ms": turns[False], "train_step_plain_turns_ms": turns[True],
+         "train_step_median_ms": step_turn_ms[False],
+         "train_step_plain_cin_median_ms": step_turn_ms[True],
+         "train_peak_gib": peak_gb, "remat_launches": remat_launches[0],
          "plain_param_spread": spread, "kernel_vs_plain_param_diff": diff},
+        {"name": "cin_backward", "route": "cuda", "source": f"{SOURCES}/cin.cu",
+         "replaces": f"{CIN_KERNEL}:134",
+         "replaces_note": "_cin_bwd, the custom VJP's backward in jnp: not a TPU kernel",
+         "launches": train_launches[1],
+         "per": f"one CIN backward at {slice_shape} bf16, one launch, from the forward's "
+                "moments; launches over the warm-up and the timed train steps",
+         "max_abs_err": bwd_err, "ms": cin_ev["backward"], "device_ms": cin_gr["backward"],
+         "plain_ms": cin_ev["plain backward"], "plain_device_ms": cin_gr["plain backward"],
+         "torch_ops_backward_ms": cin_ev["torch-ops backward"],
+         "torch_ops_backward_device_ms": cin_gr["torch-ops backward"],
+         "bound_ms": cin_bounds["backward"][0], "bound_by": cin_bounds["backward"][1],
+         "library_ms": None,
+         "library_note": "no one PyTorch call computes an instance norm's gradient",
+         "remat_launches": remat_launches[1]},
     ]}
     note(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

@@ -1,8 +1,21 @@
 """Where a launch of the port's kernels spends its time, on one card.
 
-    python -m realtime_style_transfer_torch.halo_profile [ROOT ...]
+    python -m realtime_style_transfer_torch.halo_profile [--parts P,...] [ROOT ...]
 
-First the two byte-bound passes beside each ROOT, a checkout of another
+``--parts`` picks some of ``cin``, ``finish``, ``act_stats``, ``stages`` and
+``matmul`` (all by default), run in that order.
+
+First ``cin`` (``csrc/cin.cu``) at the training step's (4, 120, 240, 128),
+bf16 and f32: the forward (each tree's ``cin``) and the backward (each tree's
+own: a tree without ``cin_forward`` has the torch-ops ``cin_backward``) by
+graph replay beside each ROOT's, the plain versions, ``F.instance_norm`` and
+the bytes bounds and the phases of a block (``// PROFILE LAP i``, as below:
+loads and sums, the grid barrier, the fold, the stores); this tree's forward
+and backward on all the SMs, half and a quarter of them;
+each output's largest difference from the plain version and each ROOT's, and
+two calls of this tree bit-equal (the command exits 1 otherwise).
+
+Then the two byte-bound passes beside each ROOT, a checkout of another
 version of the port (a ``git archive`` of an earlier commit): ``finish`` at
 the rst-960 and rst-1920 frames, one style and two, and ``act_stats`` in
 check mode on every conv stage's input of one seeded frame (rst-960 one
@@ -62,7 +75,7 @@ import torch.nn.functional as F
 
 from .ops import kernels
 from .ops.conv import pack_transpose_kernel
-from .ops.bounds import act_stats_work, bound_ms, finish_work
+from .ops.bounds import act_stats_work, bound_ms, cin_work, finish_work
 from .ops.kernels import _ARGTYPES, Prologue, launch_act_stats, launch_conv_stage
 from .ops.packed_conv import pack
 from .timing import device_share, graph_ms
@@ -80,12 +93,17 @@ MATMUL_PHASES = {
 }
 # the same for act_stats.cu's kernel
 PASS_PHASES = {"act_stats_kernel": ("copies + fold", "stream", "flush")}
+# the same for cin.cu's kernel (forward and backward)
+CIN_PHASES = {"cin_kernel": ("loads + sums", "grid barrier", "fold", "stores")}
 # the packed path's conv_matmul launches (bounds.conv_matmul_launches) and frames
 MATMUL_SPECS = ("rst-960-120-128-17", "rst-1920-120-128-17")
 FRAMES = (("rst-960-120-128-17", 1), ("rst-1920-120-128-17", 2))
 # finish's frames (the final stage's output grid) and act_stats' engines
 FINISH_FRAMES = (("rst-960", (480, 960)), ("rst-1920", (960, 1920)))
 STATS_FRAMES = (("rst-960-120-128-17", 1), ("rst-960-120-128-17", 2), ("rst-1920-120-128-17", 1))
+# the training step's residual CIN activation
+CIN_SHAPE = (4, 120, 240, 128)
+PARTS = ("cin", "finish", "act_stats", "stages", "matmul")
 # label, path, kernel (kh, kw, cin, cout), input grid, pack input, prologue
 CASES = (
     ("stem", "window", (9, 9, 17, 32), (480, 960), True, False),
@@ -110,12 +128,12 @@ def _kernel_span(text: str, name: str):
 
 
 def profiled_source(text: str) -> str:
-    """A kernel source (conv_stage.cu, conv_matmul.cu, act_stats.cu) with
-    clock64 counters in each of its kernels in PHASES, MATMUL_PHASES or
-    PASS_PHASES: its ``// PROFILE LAP
+    """A kernel source (conv_stage.cu, conv_matmul.cu, act_stats.cu, cin.cu)
+    with clock64 counters in each of its kernels in PHASES, MATMUL_PHASES,
+    PASS_PHASES or CIN_PHASES: its ``// PROFILE LAP
     i`` markers, in order i = 0, 1, ..., close counter i; each block's thread
     0 writes them to ``Params::counters``, 8 a block."""
-    for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES}.items():
+    for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES, **CIN_PHASES}.items():
         if f"{name}(const Params p" not in text:
             continue
         start, end = _kernel_span(text, name)
@@ -549,10 +567,129 @@ def act_stats_part(others, prof=None, mhz: float = 1.0) -> list:
     return bad
 
 
+def cin_part(others, prof=None, mhz: float = 1.0) -> list:
+    """``cin`` forward and backward at :data:`CIN_SHAPE`, bf16 and f32: this
+    tree's and each ROOT's by graph replay (each ROOT's own functions), the
+    plain versions, ``F.instance_norm`` and the bounds; this tree on all, half
+    and a quarter of the SMs; differences from the plain version and each
+    ROOT's.  Given ``prof``, a profiled build of ``cin.cu``, also the phases
+    of each launch's blocks."""
+    from .ops import cin as cin_mod
+
+    mods = {name: importlib.import_module(k.__name__.rsplit(".", 2)[0] + ".ops.cin")
+            for name, k in others.items()}
+    dev, eps = torch.device("cuda"), 1e-5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, w, c = CIN_SHAPE
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"cin {CIN_SHAPE} {str(dtype)[6:]}"
+        x = (torch.randn(CIN_SHAPE, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        g = torch.randn(CIN_SHAPE, generator=gen, device=dev).to(dtype)
+        scale = torch.rand((b, 1, 1, c), generator=gen, device=dev) + 0.5
+        bias = torch.randn((b, 1, 1, c), generator=gen, device=dev)
+        rows = scale.reshape(b, c), bias.reshape(b, c)
+        work = cin_work(b, h, w, c, x.element_size())
+        bounds = {k: max(bound_ms(work[k][0], 0.0, "f32"), bound_ms(0.0, work[k][1]))
+                  for k in ("forward", "backward")}
+        with torch.no_grad():
+            y, stats = cin_mod.cin_forward(x, *rows, eps)
+            dx = cin_mod.cin_backward(x, g, stats, rows[0], eps)
+            y2, stats2 = cin_mod.cin_forward(x, *rows, eps)
+            dx2 = cin_mod.cin_backward(x, g, stats, rows[0], eps)
+            py, pstats = cin_mod.cin_forward_plain(x, *rows, eps)
+            pdx = cin_mod.cin_backward_plain(x, g, pstats, rows[0], eps)
+            same = all(torch.equal(a, a2) for a, a2 in zip((y, stats, *dx), (y2, stats2, *dx2)))
+            if not same:
+                bad.append(f"{tag}: two calls differ")
+            fwd = {"this": graph_ms(lambda: cin_mod.cin(x, scale, bias))}
+            bwd = {"this": graph_ms(lambda: cin_mod.cin_backward(x, g, stats, rows[0], eps))}
+            diffs = {"plain": ((y.float() - py.float()).abs().max().item(),
+                               max((a.float() - p.float()).abs().max().item()
+                                   for a, p in zip(dx, pdx)))}
+            for name, mod in mods.items():
+                oy = mod.cin(x, scale, bias)
+                fwd[name] = graph_ms(lambda: mod.cin(x, scale, bias))
+                if hasattr(mod, "cin_forward"):
+                    odx = mod.cin_backward(x, g, stats, rows[0], eps)
+                    bwd[name] = graph_ms(lambda: mod.cin_backward(x, g, stats, rows[0], eps))
+                else:  # the torch-ops backward, which recomputes the moments
+                    odx = mod.cin_backward(x, scale, g, eps)
+                    bwd[name] = graph_ms(lambda: mod.cin_backward(x, scale, g, eps))
+                diffs[name] = ((y.float() - oy.float()).abs().max().item(),
+                               max((a.float() - o.float().reshape(a.shape)).abs().max().item()
+                                   for a, o in zip(dx, odx)))
+            fwd["plain"] = graph_ms(lambda: cin_mod.cin_forward_plain(x, *rows, eps), 5)
+            bwd["plain"] = graph_ms(
+                lambda: cin_mod.cin_backward_plain(x, g, stats, rows[0], eps), 5)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            fwd["F.instance_norm"] = graph_ms(lambda: F.instance_norm(
+                x_nchw, weight=rows[0][0], bias=rows[1][0], eps=eps))
+            sweep = {}
+            lib = kernels._lib("cin.cu")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            for n in (sms, sms // 2, sms // 4):
+                pf, pb = (cin_mod.cin_plan(b, h * w, c, x.element_size(), bw, n)
+                          for bw in (False, True))
+                ys = torch.empty_like(x), torch.empty_like(stats)
+                ds = torch.empty_like(x), torch.empty_like(rows[0]), torch.empty_like(rows[0])
+                scratch = torch.empty(b * pf.parts * 2 * c, device=dev)
+                if (cin_mod.launch_forward(lib, x, *rows, eps, *ys, scratch, pf)
+                        or cin_mod.launch_backward(lib, x, g, stats, rows[0], eps, *ds, scratch,
+                                                   pb)):
+                    raise RuntimeError(f"cin on {n} blocks: CUDA error at launch")
+                sweep[n] = (
+                    graph_ms(lambda: cin_mod.launch_forward(lib, x, *rows, eps, *ys, scratch, pf)),
+                    graph_ms(lambda: cin_mod.launch_backward(lib, x, g, stats, rows[0], eps, *ds,
+                                                             scratch, pb)),
+                    [f"{p.pix_sm}/{p.rows * -(-b * p.parts // p.blocks)} rows held"
+                     for p in (pf, pb)])
+        plan_f = cin_mod._launch_plan(x, False)
+        plan_b = cin_mod._launch_plan(x, True)
+        phases = {}
+        if prof is not None:
+            scratch = torch.empty(b * plan_f.parts * 2 * c, device=dev)
+            for what, plan, launch in (
+                    ("forward", plan_f, lambda cnt: cin_mod.launch_forward(
+                        prof, x, *rows, eps, torch.empty_like(x), torch.empty_like(stats),
+                        scratch, plan_f, cnt)),
+                    ("backward", plan_b, lambda cnt: cin_mod.launch_backward(
+                        prof, x, g, stats, rows[0], eps, torch.empty_like(x),
+                        torch.empty_like(rows[0]), torch.empty_like(rows[0]), scratch, plan_b,
+                        cnt))):
+                counters = torch.zeros(plan.blocks * 8, dtype=torch.int64, device=dev)
+                for _ in range(3):
+                    counters.zero_()
+                    if launch(counters):
+                        raise RuntimeError(f"profiled cin {what}: CUDA error")
+                torch.cuda.synchronize()
+                phases[what] = "; " + _phases(counters, CIN_PHASES["cin_kernel"], mhz)
+        for what, ms, (bound, by), plan in (("forward", fwd, bounds["forward"], plan_f),
+                                            ("backward", bwd, bounds["backward"], plan_b)):
+            print(f"{tag} {what} (graph, a call): " + ", ".join(f"{n} {v:.4f} ms"
+                                                               for n, v in ms.items())
+                  + f"; bound {bound:.4f} ms ({by}); plan: {plan.blocks} blocks, {plan.parts} "
+                  f"parts an image of {plan.rows} rows, {plan.pix_sm} rows a block held, "
+                  f"{plan.smem_bytes} bytes" + phases.get(what, ""), flush=True)
+        print(f"{tag}: largest difference (forward, backward) from " + ", ".join(
+            f"{n} {a:.3e}, {d:.3e}" for n, (a, d) in diffs.items())
+            + f"; two calls bit-equal {'yes' if same else 'NO'}", flush=True)
+        print(f"{tag} by blocks (graph, forward / backward): " + "; ".join(
+            f"{k}: {f:.4f} / {bw:.4f} ms ({', '.join(held)})"
+            for k, (f, bw, held) in sweep.items()), flush=True)
+    return bad
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("halo_profile: no CUDA device", file=sys.stderr)
         return 2
+    parts = PARTS
+    if argv[:1] == ["--parts"]:
+        parts, argv = tuple(argv[1].split(",")), argv[2:]
+        if set(parts) - set(PARTS):
+            print(f"halo_profile: --parts takes {','.join(PARTS)}", file=sys.stderr)
+            return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -560,19 +697,30 @@ def main(argv) -> int:
     others = {Path(root).name: load_package(root, f"_halo_profile_root{i}")
               for i, root in enumerate(argv)}
     # every build at once: these sources, their profiled copies, each root's
-    sources = ("conv_stage.cu", "conv_matmul.cu", "finish.cu", "act_stats.cu")
+    sources = ("cin.cu",) if parts == ("cin",) else (
+        "conv_stage.cu", "conv_matmul.cu", "finish.cu", "act_stats.cu", "cin.cu")
+    profiled = {"stages": "conv_stage.cu", "matmul": "conv_matmul.cu",
+                "act_stats": "act_stats.cu", "cin": "cin.cu"}
     with ThreadPoolExecutor() as pool:
-        profs = {src: pool.submit(_build, profiled_source((kernels.CSRC / src).read_text()),
-                                  f"halo_profile_{Path(src).stem}")
-                 for src in ("conv_stage.cu", "conv_matmul.cu", "act_stats.cu")}
+        profs = {profiled[part]: pool.submit(
+            _build, profiled_source((kernels.CSRC / profiled[part]).read_text()),
+            f"halo_profile_{Path(profiled[part]).stem}") for part in parts if part in profiled}
         builds = [pool.submit(k.build, sources) for k in (kernels, *others.values())]
         profs = {src: f.result() for src, f in profs.items()}
         for b in builds:
             b.result()
     print(f"card: {card}", flush=True)
-    bad = finish_part(others) + act_stats_part(others, profs["act_stats.cu"], mhz)
-    stage_part(profs["conv_stage.cu"], others, mhz)
-    matmul_part(profs["conv_matmul.cu"], others, mhz)
+    bad = []
+    if "cin" in parts:
+        bad += cin_part(others, profs["cin.cu"], mhz)
+    if "finish" in parts:
+        bad += finish_part(others)
+    if "act_stats" in parts:
+        bad += act_stats_part(others, profs["act_stats.cu"], mhz)
+    if "stages" in parts:
+        stage_part(profs["conv_stage.cu"], others, mhz)
+    if "matmul" in parts:
+        matmul_part(profs["conv_matmul.cu"], others, mhz)
     if bad:
         print(f"halo_profile: results differ: {bad}", file=sys.stderr)
     return 1 if bad else 0

@@ -138,15 +138,18 @@ def conv_matmul_work(hp: int, wp: int, kh: int, kw: int, cin: int, cout: int,
 def cin_work(b: int, h: int, w: int, c: int, itemsize: int) -> Dict[str, Tuple[float, float]]:
     """(f32 operations, bytes) of a CIN of a (B, H, W, C) tensor:
     ``function``, x read once and the output written once (the least any
-    design moves), and per launch of the port's two-kernel design, ``stats``
-    (x read, the (B, 2, C) moments written) and ``normalize`` (x and the
-    moments read, the output written).  Operations: an add, a square and an
-    add a value for the moments, a multiply and an add for the affine."""
+    design moves); ``forward``, the one launch of ``csrc/cin.cu``, which also
+    writes the (B, 2, C) moments; ``backward``, its gradient, x and g read
+    once, dx written once, the moments and the scale row read, dscale and
+    dbias written.  Operations: an add, a square and an add a value for the
+    moments, a multiply and an add for the affine; the backward's sums take
+    a subtract, a multiply and two adds, dx three subtracts and two
+    multiplies."""
     n = b * h * w * c
-    moments, rows = 8 * b * c, 2 * 4 * b * c   # (B, 2, C) f32; scale, bias rows
-    return {"function": (5.0 * n, 2.0 * n * itemsize + rows),
-            "stats": (3.0 * n, float(n * itemsize + moments)),
-            "normalize": (2.0 * n, float(2 * n * itemsize + moments + rows))}
+    moments, row = 8 * b * c, 4 * b * c   # (B, 2, C) f32; one (B, C) f32 row
+    return {"function": (5.0 * n, 2.0 * n * itemsize + 2 * row),
+            "forward": (5.0 * n, 2.0 * n * itemsize + 2 * row + moments),
+            "backward": (9.0 * n, 3.0 * n * itemsize + moments + 3 * row)}
 
 
 def conv_matmul_launches(plan: TransferPlan) -> Dict[str, Tuple[int, ...]]:
@@ -323,10 +326,12 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     rows["2 train"] = bound_ms(ops_s, bytes_s, "f32") + (
         f"CIN of the training step's (4, {hb}, {wb}, {fb}) bf16 activation, one read + "
         f"one write, {bytes_s / 2e6:.1f} MB each way",)
-    ops_2 = sum(slice_work[k][0] for k in ("stats", "normalize"))
-    bytes_2 = sum(slice_work[k][1] for k in ("stats", "normalize"))
-    rows["2 train, two kernels"] = bound_ms(ops_2, bytes_2, "f32") + (
-        "the same CIN as the stats + normalize launches move it: read + read + write",)
+    ops_fw, bytes_fw = slice_work["forward"]
+    rows["2 train, forward"] = bound_ms(ops_fw, bytes_fw, "f32") + (
+        "the same CIN as cin.cu's one forward launch moves it: the moments written too",)
+    ops_bw, bytes_bw = slice_work["backward"]
+    rows["2' train, backward"] = bound_ms(ops_bw, bytes_bw, "f32") + (
+        f"its gradient, one launch: x and g read, dx written, {bytes_bw / 1e6:.1f} MB",)
     for label, plan in (("rst-960", flagship), ("rst-1920", divider1)):
         for seam, shape in conv_matmul_launches(plan).items():
             ops_m, bytes_m = conv_matmul_work(*shape)

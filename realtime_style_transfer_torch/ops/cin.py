@@ -1,46 +1,91 @@
-"""Conditional instance norm on a hand-written CUDA kernel, with its gradient.
+"""Conditional instance norm on hand-written CUDA kernels, with its gradient.
 
 Port of ``realtime_style_transfer_tpu/ops/pallas/cin.py`` (TPU kernel row 2:
 ``_stats_kernel`` and ``_normalize_kernel`` behind ``cin_pallas``).
-``csrc/cin.cu`` holds the two launches:
+``csrc/cin.cu`` holds one kernel, launched once for the forward and once for
+the backward:
 
-* ``cin_stats``: per (b, c) the f32 mean and mean of squares over H x W, a
-  (B, 2, C) f32 tensor.  The kernel adds every value, then scales once by
-  ``1/(H*W)`` (the TPU kernel adds ``sum * (1/HW)`` per H tile: a few f32
-  ulps apart); its sums run in an order fixed by the grid, so two calls give
-  the same bits.
-* ``cin_normalize``: ``var = meansq - mean^2``, ``inv = rsqrt(var + eps)``,
-  ``s = inv * scale``, ``t = bias - mean * s`` in f32, then ``x * s + t`` in
-  f32, cast once to ``x.dtype``, into a fresh tensor (the JAX kernel writes
-  in place; here autograd keeps ``x`` for the backward).
+* :func:`cin_forward`: per (b, c) the f32 mean and mean of squares over
+  H x W (every value added, then scaled once by ``1/(H*W)``; the TPU kernel
+  adds ``sum * (1/HW)`` per H tile: a few f32 ulps apart), then ``var =
+  meansq - mean^2``, ``inv = rsqrt(var + eps)``, ``s = inv * scale``, ``t =
+  bias - mean * s`` in f32 and ``x * s + t`` in f32, cast once to
+  ``x.dtype``, into a fresh tensor (the JAX kernel writes in place; here
+  autograd keeps ``x`` for the backward).  It returns the (B, 2, C) f32
+  moments too.
+* :func:`cin_backward`: ``_cin_bwd``'s function, ``dbias = sum g``,
+  ``dscale = sum g * xhat``, ``dx = inv * scale * (g - mean(g) - xhat *
+  mean(g * xhat))`` cast once to ``x.dtype``.  The TPU package wrote no
+  backward kernel; this one has the forward's design.
+
+A launch is one cooperative grid of one block an SM: each image's pixels are
+cut into contiguous row ranges (:func:`cin_plan`), each block keeps its rows
+in shared memory, adds its f32 sums in a fixed order and writes them to a
+scratch; after a grid barrier every block adds its image's partials in part
+order and writes its outputs from shared memory.  So each byte of x (and g)
+is read once where a block's rows fit, and two calls give the same bits.
+Each wrapper takes that scratch with ``torch.empty``, which launches nothing.
+
+Divergence from the JAX package: ``_cin_bwd`` recomputes the moments from
+``x``; here the forward's moments are saved and the backward reuses them.
+The two differ only in the order of the f32 sums.
 
 :func:`cin` routes as ``cin_pallas`` does: below :data:`MIN_CHANNELS`
-channels it takes the plain ``conditional_instance_norm``.  Its backward is
-``_cin_bwd`` in torch ops (moments recomputed from ``x`` in f32; ``dx``,
-``dscale``, ``dbias`` cast back to their inputs' dtypes): the TPU package
-wrote no backward kernel either.
+channels it takes the plain ``conditional_instance_norm``, and its backward
+recomputes the moments in torch ops.
 
-Each launch wrapper dispatches on the device of ``x``: a CPU tensor takes the
-plain version (:func:`cin_stats_plain`, :func:`cin_normalize_plain`, same
-rounding points), a CUDA tensor launches the kernel or raises, and counts the
-launch in ``launches``.
+Each wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
+version (:func:`cin_forward_plain`, :func:`cin_backward_plain`, same rounding
+points of the folded coefficients), a CUDA tensor launches the kernel or
+raises, and counts the launch in ``launches``.
 
 Bound on the H100: bytes.  (4, 120, 240, 128) bf16, the ten residual CINs of
-a flagship training step, is 29.5 MB each way: 0.0176 ms for one read and
-one write, 0.0264 ms for this design's read + read + write
+a flagship training step: the forward moves 29.5 MB each way, 0.0176 ms; the
+backward reads x and g and writes dx, 0.0264 ms
 (:func:`..ops.bounds.cin_work`).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
-from .kernels import _check, _lib, _ptr, _stream
+from .kernels import SMS, _check, _lib, _ptr, _sm_count, _stream
 from .normalization import CIN_EPS, conditional_instance_norm
 
 MIN_CHANNELS = 64   # below it the plain CIN runs, as in the TPU package
-STATS_ROWS = 512    # cin.cu's ROWS: pixels a stats block adds
+THREADS = 512       # cin.cu's NT: threads a block
+SMEM_CAP = 232448   # cin.cu's SMEM_CAP: the H100's shared memory a block
+AUX_FLOATS = 6      # cin.cu's AUX_FLOATS: f32 a channel ahead of the rows
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class CinPlan(NamedTuple):
+    """A launch of :func:`cin_forward` or :func:`cin_backward`: each image in
+    ``parts`` items of ``rows`` rows (the last may be shorter), ``blocks``
+    blocks taking items in turn, each keeping its first ``pix_sm`` rows in
+    shared memory (``smem_bytes`` with the sums and coefficients); the rest
+    are read a second time."""
+    parts: int
+    rows: int
+    blocks: int
+    pix_sm: int
+    smem_bytes: int
+
+
+def cin_plan(b: int, hw: int, c: int, itemsize: int, backward: bool = False,
+             blocks: int = SMS) -> CinPlan:
+    """One block an SM (``blocks``): each image cut into ``blocks // b``
+    parts (at least one, at most one a row), so the training step's four
+    images make one item a block; rows to shared memory while they fit."""
+    parts = max(1, min(hw, blocks // b))
+    rows = -(-hw // parts)
+    grid = min(b * parts, blocks)
+    aux = -(-AUX_FLOATS * 4 * c // 16) * 16
+    row_bytes = c * itemsize * (2 if backward else 1)
+    pix_sm = max(0, min(-(-b * parts // grid) * rows, (SMEM_CAP - aux) // row_bytes))
+    return CinPlan(parts, rows, grid, pix_sm, aux + pix_sm * row_bytes)
 
 
 def cin_stats_plain(x: torch.Tensor) -> torch.Tensor:
@@ -54,12 +99,45 @@ def cin_stats_plain(x: torch.Tensor) -> torch.Tensor:
 
 def cin_normalize_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """The normalize step of :func:`cin_normalize` in torch ops."""
+    """``x * s + t`` with the f32 affine folded from ``stats`` (B, 2, C) and
+    the (B, C) f32 ``scale`` and ``bias``, in torch ops."""
     mean, meansq = stats[:, 0], stats[:, 1]
     inv = torch.rsqrt((meansq - mean * mean) + eps)
     s = inv * scale
     t = bias - mean * s
     return (x.float() * s[:, None, None, :] + t[:, None, None, :]).to(x.dtype)
+
+
+def cin_forward_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cin_forward` in torch ops: (output, moments)."""
+    stats = cin_stats_plain(x)
+    return cin_normalize_plain(x, stats, scale, bias, eps), stats
+
+
+def cin_backward_plain(x: torch.Tensor, g: torch.Tensor, stats: Optional[torch.Tensor],
+                       scale: torch.Tensor, eps: float):
+    """``_cin_bwd`` of the TPU package in torch ops: (dx, dscale, dbias), dx
+    of ``x``'s dtype, dscale and dbias (B, C) f32; ``scale`` (B, C).  With
+    ``stats`` None the moments are recomputed from ``x``, as ``_cin_bwd``
+    does; else the forward's (B, 2, C) moments are used."""
+    b, _, _, c = x.shape
+    xf, gf = x.float(), g.float()
+    if stats is None:
+        mean = torch.mean(xf, dim=(1, 2), keepdim=True)
+        var = torch.mean(xf * xf, dim=(1, 2), keepdim=True) - mean * mean
+    else:
+        mean = stats[:, 0].reshape(b, 1, 1, c)
+        var = stats[:, 1].reshape(b, 1, 1, c) - mean * mean
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dbias = torch.sum(gf, dim=(1, 2))
+    dscale = torch.sum(gf * xhat, dim=(1, 2))
+    dxhat = gf * scale.float().reshape(b, 1, 1, c)
+    m_dxhat = torch.mean(dxhat, dim=(1, 2), keepdim=True)
+    m_dxhat_xhat = torch.mean(dxhat * xhat, dim=(1, 2), keepdim=True)
+    dx = inv * (dxhat - m_dxhat - xhat * m_dxhat_xhat)
+    return dx.to(x.dtype), dscale, dbias
 
 
 def _check_x(x: torch.Tensor, name: str) -> None:
@@ -69,55 +147,105 @@ def _check_x(x: torch.Tensor, name: str) -> None:
     _check(x, name, x.dtype, x.shape, x.device)
 
 
-def cin_stats(x: torch.Tensor) -> torch.Tensor:
-    """The (B, 2, C) f32 [mean, mean of squares] of NHWC ``x``."""
+def _on_cuda(x: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (the plain version runs); True for CUDA."""
     if x.device.type == "cpu":
-        return cin_stats_plain(x)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"cin_stats runs on CUDA or the CPU, not {x.device}")
-    _check_x(x, "cin_stats input")
+        raise ValueError(f"{name} runs on CUDA or the CPU, not {x.device}")
+    _check_x(x, f"{name} input")
+    return True
+
+
+def _vectors(c: int, itemsize: int) -> int:
+    """The kernel's vectors a row: C over 16 bytes' worth of channels, or C."""
+    return c // (16 // itemsize) if c % (16 // itemsize) == 0 else c
+
+
+def _launch_plan(x: torch.Tensor, backward: bool) -> CinPlan:
     b, h, w, c = x.shape
-    blocks = -(-(h * w) // STATS_ROWS)
-    partials = torch.empty(b * blocks * 2 * c, dtype=torch.float32, device=x.device)
-    tickets = torch.zeros(b, dtype=torch.int32, device=x.device)
-    stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    err = _lib("cin.cu").rst_cin_stats(
-        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(partials), _ptr(tickets), _ptr(stats),
-        b, h * w, c, 1.0 / float(h * w), partials.numel(), _stream(x))
-    if err:
-        raise RuntimeError(f"cin_stats: CUDA error {err} at launch")
-    cin_stats.launches += 1
-    return stats
+    if _vectors(c, x.element_size()) > THREADS:
+        raise ValueError(f"cin: at most {THREADS} vectors a row, not C = {c} "
+                         f"{str(x.dtype)[6:]}")
+    return cin_plan(b, h * w, c, x.element_size(), backward, _sm_count(x.device))
 
 
-cin_stats.launches = 0
-
-
-def cin_normalize(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """``x * s + t`` with the f32 affine folded from ``stats`` (B, 2, C) and
-    the (B, C) f32 ``scale`` and ``bias``; a fresh tensor of ``x``'s dtype."""
-    if x.device.type == "cpu":
-        return cin_normalize_plain(x, stats, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"cin_normalize runs on CUDA or the CPU, not {x.device}")
-    _check_x(x, "cin_normalize input")
+def launch_forward(lib, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                   out: torch.Tensor, stats: torch.Tensor, partials: torch.Tensor,
+                   plan: CinPlan, counters: Optional[torch.Tensor] = None) -> int:
+    """``rst_cin_forward`` of ``lib``, unchecked and uncounted (the wrapper
+    checks its tensors first; ``halo_profile`` gives it a profiled build and
+    ``counters``, the int64 buffer of its clock counters): the CUDA error."""
     b, h, w, c = x.shape
+    return lib.rst_cin_forward(
+        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(scale), _ptr(bias), float(eps), _ptr(out),
+        _ptr(stats), _ptr(partials), _ptr(counters), b, h * w, c, plan.parts, plan.blocks,
+        plan.pix_sm, _stream(x))
+
+
+def launch_backward(lib, x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                    scale: torch.Tensor, eps: float, dx: torch.Tensor, dscale: torch.Tensor,
+                    dbias: torch.Tensor, partials: torch.Tensor, plan: CinPlan,
+                    counters: Optional[torch.Tensor] = None) -> int:
+    """``rst_cin_backward`` of ``lib``, as :func:`launch_forward`."""
+    b, h, w, c = x.shape
+    return lib.rst_cin_backward(
+        _ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(stats), _ptr(scale), float(eps),
+        _ptr(dx), _ptr(dscale), _ptr(dbias), _ptr(partials), _ptr(counters), b, h * w, c,
+        plan.parts, plan.blocks, plan.pix_sm, _stream(x))
+
+
+def cin_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CIN of NHWC ``x`` with the (B, C) f32 ``scale`` and ``bias``: (the
+    output, a fresh tensor of ``x``'s dtype; the (B, 2, C) f32 [mean, mean of
+    squares])."""
+    if not _on_cuda(x, "cin_forward"):
+        return cin_forward_plain(x, scale, bias, eps)
+    b, _, _, c = x.shape
     f32 = torch.float32
-    _check(stats, "cin_normalize stats", f32, (b, 2, c), x.device)
-    _check(scale, "cin_normalize scale", f32, (b, c), x.device)
-    _check(bias, "cin_normalize bias", f32, (b, c), x.device)
+    _check(scale, "cin_forward scale", f32, (b, c), x.device)
+    _check(bias, "cin_forward bias", f32, (b, c), x.device)
+    plan = _launch_plan(x, False)
     out = torch.empty_like(x)
-    err = _lib("cin.cu").rst_cin_normalize(
-        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(stats), _ptr(scale), _ptr(bias),
-        float(eps), _ptr(out), b, h * w, c, _stream(x))
+    stats = torch.empty((b, 2, c), dtype=f32, device=x.device)
+    partials = torch.empty(b * plan.parts * 2 * c, dtype=f32, device=x.device)
+    err = launch_forward(_lib("cin.cu"), x, scale, bias, eps, out, stats, partials, plan)
     if err:
-        raise RuntimeError(f"cin_normalize: CUDA error {err} at launch")
-    cin_normalize.launches += 1
-    return out
+        raise RuntimeError(f"cin_forward: CUDA error {err} at launch")
+    cin_forward.launches += 1
+    return out, stats
 
 
-cin_normalize.launches = 0
+cin_forward.launches = 0
+
+
+def cin_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                 eps: float):
+    """The gradient of :func:`cin_forward` for ``g``, the output's: (dx of
+    ``x``'s dtype, dscale (B, C) f32, dbias (B, C) f32), from the forward's
+    moments ``stats`` and the (B, C) f32 ``scale``."""
+    if not _on_cuda(x, "cin_backward"):
+        return cin_backward_plain(x, g, stats, scale, eps)
+    b, _, _, c = x.shape
+    f32 = torch.float32
+    _check(g, "cin_backward g", x.dtype, x.shape, x.device)
+    _check(stats, "cin_backward stats", f32, (b, 2, c), x.device)
+    _check(scale, "cin_backward scale", f32, (b, c), x.device)
+    plan = _launch_plan(x, True)
+    dx = torch.empty_like(x)
+    dscale = torch.empty((b, c), dtype=f32, device=x.device)
+    dbias = torch.empty((b, c), dtype=f32, device=x.device)
+    partials = torch.empty(b * plan.parts * 2 * c, dtype=f32, device=x.device)
+    err = launch_backward(_lib("cin.cu"), x, g, stats, scale, eps, dx, dscale, dbias, partials,
+                          plan)
+    if err:
+        raise RuntimeError(f"cin_backward: CUDA error {err} at launch")
+    cin_backward.launches += 1
+    return dx, dscale, dbias
+
+
+cin_backward.launches = 0
 
 
 def _rows(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
@@ -125,50 +253,30 @@ def _rows(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
     return t.reshape(b, c).float().contiguous()
 
 
-def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
-             plain: bool = False) -> torch.Tensor:
-    b, _, _, c = x.shape
-    if c < MIN_CHANNELS:
-        return conditional_instance_norm(x, scale, bias, epsilon=eps)
-    x = x.contiguous()
-    rows = _rows(scale, b, c), _rows(bias, b, c)
-    if plain:
-        return cin_normalize_plain(x, cin_stats_plain(x), *rows, eps)
-    return cin_normalize(x, cin_stats(x), *rows, eps)
-
-
-def cin_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
-    """``_cin_bwd`` of the TPU package in torch ops: (dx, dscale, dbias), dx
-    of ``x``'s dtype, dscale and dbias f32 of ``scale``'s shape."""
-    b, _, _, c = x.shape
-    xf, gf = x.float(), g.float()
-    mean = torch.mean(xf, dim=(1, 2), keepdim=True)
-    var = torch.mean(xf * xf, dim=(1, 2), keepdim=True) - mean * mean
-    inv = torch.rsqrt(var + eps)
-    xhat = (xf - mean) * inv
-    dbias = torch.sum(gf, dim=(1, 2), keepdim=True).reshape(scale.shape)
-    dscale = torch.sum(gf * xhat, dim=(1, 2), keepdim=True).reshape(scale.shape)
-    dxhat = gf * scale.float().reshape(b, 1, 1, c)
-    m_dxhat = torch.mean(dxhat, dim=(1, 2), keepdim=True)
-    m_dxhat_xhat = torch.mean(dxhat * xhat, dim=(1, 2), keepdim=True)
-    dx = inv * (dxhat - m_dxhat - xhat * m_dxhat_xhat)
-    return dx.to(x.dtype), dscale, dbias
-
-
 class _Cin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, plain):
-        ctx.save_for_backward(x, scale)
-        ctx.eps = eps
+        b, _, _, c = x.shape
+        ctx.eps, ctx.plain = eps, plain
         ctx.bias_like = (bias.shape, bias.dtype)
-        return _forward(x, scale, bias, eps, plain)
+        if c < MIN_CHANNELS:
+            ctx.save_for_backward(x, scale, None)
+            return conditional_instance_norm(x, scale, bias, epsilon=eps)
+        x = x.contiguous()
+        out, stats = (cin_forward_plain if plain else cin_forward)(
+            x, _rows(scale, b, c), _rows(bias, b, c), eps)
+        ctx.save_for_backward(x, scale, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, scale = ctx.saved_tensors
-        dx, dscale, dbias = cin_backward(x, scale, g, ctx.eps)
+        x, scale, stats = ctx.saved_tensors
+        b, _, _, c = x.shape
+        backward = cin_backward_plain if ctx.plain or stats is None else cin_backward
+        dx, dscale, dbias = backward(x, g.contiguous(), stats, _rows(scale, b, c), ctx.eps)
         shape, dtype = ctx.bias_like
-        return dx, dscale.to(scale.dtype), dbias.reshape(shape).to(dtype), None, None
+        return (dx, dscale.reshape(scale.shape).to(scale.dtype), dbias.reshape(shape).to(dtype),
+                None, None)
 
 
 def cin(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -182,10 +290,10 @@ def cin(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def cin_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               epsilon: float = CIN_EPS) -> torch.Tensor:
     """:func:`cin` with the kernels' plain versions, on any device: same
-    signature, same rounding points, same backward."""
+    signature, same rounding points, same saved moments."""
     return _Cin.apply(x, scale, bias, float(epsilon), True)
 
 
 def reset_launch_counts() -> None:
-    cin_stats.launches = 0
-    cin_normalize.launches = 0
+    cin_forward.launches = 0
+    cin_backward.launches = 0

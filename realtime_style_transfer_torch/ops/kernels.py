@@ -101,8 +101,8 @@ _ARGTYPES = {
     "rst_conv_matmul": [_P] * 8 + [_I] * 13 + [_P],
     "rst_conv_matmul_f32": [_P] * 6 + [_I] * 7 + [_P],
     "rst_probe_smem": [_I] * 4 + [_P] * 5,
-    "rst_cin_stats": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "rst_cin_normalize": [_P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _P],
+    "rst_cin_forward": [_P, _I, _P, _P, _F] + [_P] * 4 + [_I] * 6 + [_P],
+    "rst_cin_backward": [_P, _P, _I, _P, _P, _F] + [_P] * 5 + [_I] * 6 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

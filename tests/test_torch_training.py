@@ -261,7 +261,7 @@ def test_use_pallas_equals_the_plain_cin_on_the_cpu(tiny64):
     tcin.reset_launch_counts()
     s_on, m_on = tiny64["port"].train_step(tiny64["state0"], tiny64["batch"])
     s_off, m_off = without.train_step(tiny64["state0"], tiny64["batch"])
-    assert (tcin.cin_stats.launches, tcin.cin_normalize.launches) == (0, 0)
+    assert (tcin.cin_forward.launches, tcin.cin_backward.launches) == (0, 0)
     for key in m_on:
         np.testing.assert_allclose(float(m_on[key]), float(m_off[key]), rtol=2e-4)
 
