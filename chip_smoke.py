@@ -190,6 +190,31 @@ Run from the repository root: ``python3 chip_smoke.py``.
    frame latency percentiles, its frame loop's rate, the native decode time
    of one G-buffer set and the host's other steps of a frame (preprocess,
    frame pack, PNG sink), each timed alone.
+10. The trainer CLI, ``python -m realtime_style_transfer_torch.train_network``,
+   driven in this process through ``train_network.main`` on files written
+   here: 8 training and 4 validation seeded 480x960 G-buffer sets of 17
+   channels and 20 seeded style PNGs (the 80/20 style split leaves 4 for
+   validation, one batch of 4); rst-960-120-128-17, bf16, the VGG tower
+   split, batch 4, 2 epochs, checkpoints every epoch, seed 36 (the config's
+   depth default is off).  The run directory must hold ``config.json``,
+   ``metrics.jsonl`` with the training and validation losses of both epochs,
+   an event file ``read_events`` parses (scalars, histograms, images),
+   ``images/*.png``, ``ckpt/`` with epochs 0 and 1, ``latest_ckpt/`` with
+   epoch 1 only and ``weights/latest_epoch_weights.npz``; every logged loss
+   finite; ``cin_forward`` and ``cin_backward`` launches equal to the counts
+   derived from the run's passes (10 forward a train step, eval step,
+   summary-image prediction and gradient callback; 10 backward a train
+   step and gradient callback) and no ``conv_stage`` launch; the trainer's
+   first step, from a copy of its state and batch, within rtol 0.05 + atol
+   0.02 of ``tm.train_step(..., plain=True)`` on each loss component; a
+   ``--continue_from`` run to 3 epochs starts at epoch 2 from a state equal
+   bit for bit to ``latest_ckpt/1.npz`` (f32 parameters and ``nu``), with
+   its launches derived the same way; and the weights artifact loads
+   through ``cli.load_variables(run)`` into ``FusedTransfer``, two seeded
+   frames within phase 2's limits of the eager f32 net on those weights.
+   Prints the epoch times, each step's host time and the median after the
+   first, the time waiting on the prefetcher against the time in steps,
+   the peak memory and the launches.
 
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
@@ -425,6 +450,240 @@ def cli_phase(note, failures) -> dict:
                                           "latency": r["out"]["latency"],
                                           "loop_s": r["out"]["loop_s"]}
                for k, r in runs.items()}}
+
+
+N_TRAIN, N_VAL, N_STYLES = 8, 4, 20
+CINS = 10   # the residual CINs of 128 channels: one kernel launch each a pass
+
+
+def train_phase(note, failures, close) -> dict:
+    """Phase 10: the trainer CLI on the card (see the module docstring).
+    Appends to ``failures``; returns the runs' launches and times."""
+    import PIL.Image
+    import torch
+
+    from realtime_style_transfer_torch import cli, train_network
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.data.exr import write_gbuffer_fixture
+    from realtime_style_transfer_torch.models.inference import plan_from_config
+    from realtime_style_transfer_torch.models.training import TrainState
+    from realtime_style_transfer_torch.ops import cin as cin_mod
+    from realtime_style_transfer_torch.ops import kernels
+    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
+    from realtime_style_transfer_torch.optim import RMSPropState
+    from realtime_style_transfer_torch.tracing.callbacks import Callback
+    from realtime_style_transfer_torch.tracing.checkpoint import read_tree, state_tree
+    from realtime_style_transfer_torch.tracing.metrics import read_metrics
+    from realtime_style_transfer_torch.tracing.tensorboard import read_events
+
+    t10 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = ShapeConfig.from_spec(SPEC)
+    h, w = cfg.input_dimensions
+    for sub, n, base in (("training", N_TRAIN, 100), ("validation", N_VAL, 200)):
+        for i in range(n):
+            write_gbuffer_fixture(root / "content" / sub, f"set{i:02d}", cfg.channels, h, w,
+                                  seed=SEED + base + i, compression="none")
+    (root / "styles").mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 10)
+    for k in range(N_STYLES):
+        PIL.Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(
+            root / "styles" / f"style{k:02d}.png")
+    note(f"phase 10 inputs: {N_TRAIN} training + {N_VAL} validation G-buffer sets "
+         f"{h}x{w}x17 and {N_STYLES} style PNGs written in {time.perf_counter() - t10:.1f} s")
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(clone(v) for v in tree)
+        return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+    class Observer(Callback):
+        """Counts the trainer's steps, keeps a copy of its first step's state
+        and batch and that step's metrics, and the epochs' logs."""
+
+        def __init__(self):
+            self.trainer, self.first, self.first_metrics = None, None, None
+            self.epochs, self.train_steps, self.eval_steps = [], 0, 0
+
+        def on_train_begin(self, trainer):
+            self.trainer = trainer
+            train_step, eval_step = trainer._train_step, trainer._eval_step
+
+            def counted_train(state, batch):
+                self.train_steps += 1
+                if self.first is None:
+                    s = state
+                    self.first = (TrainState(s.step.clone(), clone(s.params),
+                                             clone(s.batch_stats),
+                                             RMSPropState(clone(s.opt_state.nu))), clone(batch))
+                    state, metrics = train_step(state, batch)
+                    self.first_metrics = {k: float(v) for k, v in metrics.items()}
+                    return state, metrics
+                return train_step(state, batch)
+
+            def counted_eval(state, batch):
+                self.eval_steps += 1
+                return eval_step(state, batch)
+
+            trainer._train_step, trainer._eval_step = counted_train, counted_eval
+
+        def on_epoch_end(self, epoch, state, logs):
+            self.epochs.append((epoch, dict(logs)))
+
+    def run(log_dir, *extra):
+        argv = ["--network_spec", SPEC, "--dtype", "bfloat16", "--loss", "vgg",
+                "--loss_tower", "split", "--epochs", "2", "--batch_size", "4",
+                "--checkpoint_cadence", "1", "--content_dir", str(root / "content"),
+                "--style_dir", str(root / "styles"), "--seed", "36",
+                "--log_dir", str(log_dir), *extra]
+        if cfg.with_depth_loss:
+            argv += ["--depth_checkpoint", "bundled"]
+        observer = Observer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cin_mod.reset_launch_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = train_network.main(argv, callbacks=[observer])
+        except (SystemExit, Exception) as e:  # noqa: BLE001 — the phase reports it
+            failures.append(f"train cli {log_dir.name}: {type(e).__name__} {e}")
+            return None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"cin_forward": cin_mod.cin_forward.launches,
+                    "cin_backward": cin_mod.cin_backward.launches,
+                    "conv_stage": kernels.conv_stage.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if out != log_dir:
+            failures.append(f"train cli {log_dir.name}: main returned {out}")
+        timings = observer.trainer.timings
+        steps_ms = [t[2] * 1e3 for t in timings]
+        wait_s, step_s = sum(t[1] for t in timings), sum(t[2] for t in timings)
+        metrics = read_metrics(log_dir)
+        predictions = len(list((log_dir / "images").glob("*_prediction_*.png")))
+        grad_epochs = sorted({s for tag, vals in metrics.items() if tag.startswith("gradients/")
+                              for s, _ in vals})
+        counts = {"train": observer.train_steps, "eval": observer.eval_steps,
+                  "predict": predictions, "gradients": len(grad_epochs)}
+        want = {"cin_forward": CINS * sum(counts.values()),
+                "cin_backward": CINS * (counts["train"] + counts["gradients"]),
+                "conv_stage": 0}
+        note(f"train cli {log_dir.name}: epochs {[e for e, _ in observer.epochs]}, epoch times "
+             + ", ".join(f"{logs['epoch_time']:.3f} s" for _, logs in observer.epochs)
+             + f"; {len(steps_ms)} steps, ms a step by host clock "
+             + ", ".join(f"{v:.3f}" for v in steps_ms)
+             + (f", median after the first {float(np.median(steps_ms[1:])):.4f}"
+                if len(steps_ms) > 1 else "")
+             + f"; waiting on the prefetcher {wait_s * 1e3:.3f} ms against {step_s * 1e3:.3f} ms "
+             f"in steps (data-wait share {wait_s / (wait_s + step_s):.4f}); peak memory "
+             f"{peak:.3f} GiB; main() {wall:.1f} s")
+        print(f"  train cli {log_dir.name}: passes {counts}; launches {launches}, derived "
+              f"{want} (10 forward a pass, 10 backward a train step or gradient callback)")
+        if launches != want:
+            failures.append(f"train cli {log_dir.name} launch counts")
+        return dict(observer=observer, launches=launches, want=want, counts=counts,
+                    metrics=metrics, steps_ms=steps_ms, wait_s=wait_s, step_s=step_s,
+                    peak_gib=peak, wall_s=wall)
+
+    run1 = root / "run"
+    first = run(run1)
+    if first is None:
+        return {}
+    obs = first["observer"]
+    # 1. the run directory
+    events = list(run1.glob("events.out.tfevents.*"))
+    kinds = {e["kind"] for e in read_events(events[0])} if len(events) == 1 else set()
+    layout = {
+        "config.json": (run1 / "config.json").is_file(),
+        "metrics.jsonl": all(
+            sorted(s for s, _ in first["metrics"].get(f"{split}/{name}", [])) == [0, 1]
+            for split in ("training", "validation")
+            for name in ("loss", "feature_loss", "style_loss", "total_variation_loss")),
+        "event file": {"scalar", "histogram", "image"} <= kinds,
+        "images": any((run1 / "images").glob("*.png")),
+        "ckpt": sorted(p.name for p in (run1 / "ckpt").glob("*.npz")) == ["0.npz", "1.npz"],
+        "latest_ckpt": [p.name for p in (run1 / "latest_ckpt").glob("*.npz")] == ["1.npz"],
+        "weights": (run1 / "weights" / "latest_epoch_weights.npz").is_file()}
+    print(f"  train cli run directory: {layout}")
+    if not all(layout.values()):
+        failures.append(f"train cli run directory {layout}")
+    # 2. every logged loss finite
+    losses = {tag: vals for tag, vals in first["metrics"].items()
+              if tag.split("/")[0] in ("training", "validation") and "loss" in tag}
+    finite = all(np.isfinite(v) for vals in losses.values() for _, v in vals)
+    print("  train cli losses: " + ", ".join(f"{tag} {[round(v, 6) for _, v in vals]}"
+                                              for tag, vals in sorted(losses.items()))
+          + f" {'finite' if finite else 'NOT FINITE'}")
+    if not finite or not losses:
+        failures.append("train cli losses")
+    # 4. the trainer's first step against the step with the kernels' plain versions
+    tm = obs.trainer.tm
+    state0, batch0 = obs.first
+    _, plain_metrics = tm.train_step(state0, batch0, plain=True)
+    errs = {k: abs(obs.first_metrics[k] - float(v)) for k, v in plain_metrics.items()}
+    ok = set(errs) == set(obs.first_metrics) and all(
+        errs[k] <= 0.02 + 0.05 * abs(float(plain_metrics[k])) for k in errs)
+    print(f"  train cli first step vs tm.train_step(plain=True): loss components within rtol "
+          f"0.05 + atol 0.02 {'ok' if ok else 'FAIL'} ("
+          + ", ".join(f"{k} {obs.first_metrics[k]:.6g} / {float(plain_metrics[k]):.6g}"
+                      for k in sorted(errs)) + ")")
+    if not ok:
+        failures.append("train cli first step vs plain")
+    del obs.first, state0, batch0
+    # 5. resume: starts at epoch 2 from the saved latest checkpoint, bit for bit
+    saved = read_tree(run1 / "latest_ckpt" / "1.npz")
+    second = run(root / "resumed", "--continue_from", str(run1), "--epochs", "3")
+    if second is not None:
+        obs2 = second["observer"]
+        restored, _ = obs2.first
+        got = state_tree(restored)
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", np.asarray(v)
+
+        want_leaves, got_leaves = dict(leaves(saved)), dict(leaves(got))
+        equal = (set(want_leaves) == set(got_leaves) and all(
+            want_leaves[k].dtype == got_leaves[k].dtype
+            and np.array_equal(want_leaves[k], got_leaves[k]) for k in want_leaves))
+        dtypes = {str(v.dtype) for v in (*restored.params.values(),
+                                         *restored.opt_state.nu.values())}
+        starts = [e for e, _ in obs2.epochs] == [2]
+        print(f"  train cli resume: epochs {[e for e, _ in obs2.epochs]} (expected [2]); "
+              f"restored state vs latest_ckpt/1.npz: {len(want_leaves)} leaves, bit-equal "
+              f"{equal}; step {int(restored.step)}; parameter and nu dtypes {sorted(dtypes)}")
+        if not (equal and starts and dtypes == {"torch.float32"}):
+            failures.append("train cli resume")
+        del obs2.first
+    # 6. the weights artifact through cli.load_variables into FusedTransfer
+    model = cli.build_inference(cfg, dtype=torch.float32)
+    variables = cli.load_variables(run1, model)
+    fused = FusedTransfer(variables, plan_from_config(cfg))
+    rng = np.random.default_rng(SEED + 20)
+    with torch.no_grad():
+        style = torch.from_numpy(rng.random((1, 1, h, w, 3), dtype=np.float32)).cuda()
+        style_params = model.predict_style_params(style)
+        prepared = fused.prepare_style(style_params)
+        frame_errs = []
+        for i in range(2):
+            frame = rng.random(cfg.content_shape, dtype=np.float32)
+            got = fused.stylize_prepacked(fused.pack_frame_np(frame[None]), prepared)[0]
+            want = model.transfer(torch.from_numpy(frame)[None].cuda(), style_params)[0]
+            frame_errs.append(close(f"train cli weights: FusedTransfer frame {i} vs the eager "
+                                    "f32 net", got, want, 1.6e-2, 1e-2))
+    note(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return {name: None if r is None else {
+        k: r[k] for k in ("launches", "want", "counts", "steps_ms", "wait_s", "step_s",
+                          "peak_gib", "wall_s")}
+        for name, r in (("run", first), ("resume", second))} | {"frame_errs": frame_errs}
 
 
 def main() -> int:
@@ -2140,6 +2399,14 @@ def main() -> int:
     if failed("phase 9"):
         return 1
 
+    # ---- phase 10: the trainer CLI ------------------------------------------------
+    print(f"phase 10: python -m realtime_style_transfer_torch.train_network on {SPEC}, batch 4, "
+          "bf16, VGG split", flush=True)
+    train_runs = train_phase(note, failures, close)
+    print(f"phase 10 results: {json.dumps(train_runs)}", flush=True)
+    if failed("phase 10"):
+        return 1
+
     def cli_launches(kernel, *labels):
         """The launches of ``kernel`` in phase 9's runs ``labels``."""
         return {lab: cli_runs[lab]["launches"][kernel] for lab in labels}
@@ -2410,11 +2677,13 @@ def main() -> int:
          "also_replaces": f"{SMEM_PROBE}:119"},
         {"name": "cin", "route": "cuda", "source": f"{SOURCES}/cin.cu",
          "replaces": f"{CIN_KERNEL}:52", "also_replaces": f"{CIN_KERNEL}:64",
-         "launches": train_launches[0],
+         "launches": train_runs["run"]["launches"]["cin_forward"],
          "per": f"one CIN forward of the training step's {slice_shape} bf16 activation, one "
-                "launch; launches over the warm-up and "
-                f"{K8} timed train steps (ms: wrapper calls timed with CUDA events; device_ms: "
-                "a CUDA graph's replay)",
+                "launch; launches over phase 10's two-epoch train_network run (ms: wrapper "
+                "calls timed with CUDA events; device_ms: a CUDA graph's replay)",
+         "train_step_launches": train_launches[0],
+         "resume_launches": (train_runs["resume"] or {}).get("launches", {}).get(
+             "cin_forward"),
          "max_abs_err": max(cin_errs), "ms": cin_ev["forward"], "device_ms": cin_gr["forward"],
          "cin_call_ms": cin_ev["cin"], "plain_ms": cin_ev["plain forward"],
          "plain_device_ms": cin_gr["plain forward"], "bound_ms": cin_bounds["forward"][0],
@@ -2432,9 +2701,12 @@ def main() -> int:
         {"name": "cin_backward", "route": "cuda", "source": f"{SOURCES}/cin.cu",
          "replaces": f"{CIN_KERNEL}:134",
          "replaces_note": "_cin_bwd, the custom VJP's backward in jnp: not a TPU kernel",
-         "launches": train_launches[1],
+         "launches": train_runs["run"]["launches"]["cin_backward"],
          "per": f"one CIN backward at {slice_shape} bf16, one launch, from the forward's "
-                "moments; launches over the warm-up and the timed train steps",
+                "moments; launches over phase 10's two-epoch train_network run",
+         "train_step_launches": train_launches[1],
+         "resume_launches": (train_runs["resume"] or {}).get("launches", {}).get(
+             "cin_backward"),
          "max_abs_err": bwd_err, "ms": cin_ev["backward"], "device_ms": cin_gr["backward"],
          "plain_ms": cin_ev["plain backward"], "plain_device_ms": cin_gr["plain backward"],
          "torch_ops_backward_ms": cin_ev["torch-ops backward"],

@@ -18,7 +18,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .weights import _flatten, from_flax
+from .weights import from_flax
 
 log = logging.getLogger(__name__)
 
@@ -67,32 +67,23 @@ def build_inference(config, *, dtype: Optional[torch.dtype] = None, rng_seed: in
 
 def save_variables(path, variables: Mapping) -> Path:
     """Write a flax tree as a checkpoint file (``.npz``, ``/``-joined keys)."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
-        np.savez(f, **{"/".join(keys): leaf for keys, leaf in _flatten(variables)})
-    return path
+    from .tracing.checkpoint import write_tree
+
+    return write_tree(path, variables)
 
 
 def load_variables(checkpoint_path, model: torch.nn.Module) -> dict:
-    """Load a checkpoint file into ``model`` (every leaf must match: a missing
-    or extra leaf raises) and return its flax tree of numpy arrays, which the
-    fused and packed engines and the int8 scales fingerprint take."""
-    path = Path(checkpoint_path)
-    if path.is_dir():
-        raise ValueError(
-            f"{path} is a directory (an Orbax checkpoint of the JAX package?): the "
-            "port reads one .npz file keyed by /-joined flax paths; convert the run "
-            "where JAX runs, as README.md says under 'Converting a JAX checkpoint'")
-    variables: dict = {}
-    with np.load(path, allow_pickle=False) as data:
-        for (*parents, leaf), value in _flatten(data):
-            node = variables
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = value
+    """Load a checkpoint into ``model`` (every leaf must match: a missing or
+    extra leaf raises) and return its flax tree of numpy arrays, which the
+    fused and packed engines and the int8 scales fingerprint take.  The
+    checkpoint is an ``.npz`` file, or a training run directory of the port
+    (its ``weights/latest_epoch_weights.npz``); any other directory, such as
+    the JAX package's Orbax run, is refused."""
+    from .tracing.checkpoint import load_weights, weights_file
+
+    variables = load_weights(checkpoint_path)
     model.load_state_dict(from_flax(variables, expected=model), strict=True)
-    log.info("loaded %s", path)
+    log.info("loaded %s", weights_file(checkpoint_path))
     return variables
 
 

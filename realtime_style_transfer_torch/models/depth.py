@@ -94,14 +94,9 @@ def depth_base_filters(variables) -> int:
 def load_depth_checkpoint(path) -> dict:
     """Flax variables of MidasLite from an ``.npz`` keyed by ``/``-joined
     flax paths, as the JAX package saves them."""
-    tree: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = np.array(data[key])
+    from ..tracing.checkpoint import read_tree
+
+    tree = read_tree(path)
     return tree if "params" in tree else {"params": tree}
 
 

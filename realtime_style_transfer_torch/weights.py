@@ -99,28 +99,38 @@ def _check_keys(got: Mapping[str, torch.Tensor], expected) -> None:
                              f"shape {tuple(value.shape)}")
 
 
+def flax_key(key: str, ndim: int) -> Tuple[str, Tuple[str, ...], bool]:
+    """(collection, path in it, whether the layout is OIHW) of the port leaf
+    ``key`` of ``ndim`` dimensions: the flax name :func:`to_flax` gives it."""
+    module, _, leaf = key.rpartition(".")
+    oihw = False
+    if leaf == "weight" and ndim == 4:
+        collection, name = "params", "kernel"
+        oihw = not _is_transpose(module)
+    elif leaf == "weight" and ndim == 1:
+        collection, name = "params", "scale"
+    elif leaf == "bias":
+        collection, name = "params", "bias"
+    elif leaf in ("running_mean", "running_var"):
+        collection, name = "batch_stats", leaf[len("running_"):]
+    else:
+        raise ValueError(f"port leaf {key} has no flax counterpart")
+    path = (*module.split("."), name) if module else (name,)
+    return collection, path, oihw
+
+
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     """The port's ``state_dict`` -> nested flax variables of numpy arrays."""
     tree: Dict[str, dict] = {}
     for key, value in state_dict.items():
-        module, _, leaf = key.rpartition(".")
         a = value.detach().cpu().float()
-        if leaf == "weight" and a.ndim == 4:
-            collection, name = "params", "kernel"
-            if not _is_transpose(module):
-                a = a.permute(2, 3, 1, 0)
-        elif leaf == "weight" and a.ndim == 1:
-            collection, name = "params", "scale"
-        elif leaf == "bias":
-            collection, name = "params", "bias"
-        elif leaf in ("running_mean", "running_var"):
-            collection, name = "batch_stats", leaf[len("running_"):]
-        else:
-            raise ValueError(f"port leaf {key} has no flax counterpart")
+        collection, path, oihw = flax_key(key, a.ndim)
+        if oihw:
+            a = a.permute(2, 3, 1, 0)
         node = tree.setdefault(collection, {})
-        for part in module.split(".") if module else ():
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(a.numpy())
+        node[path[-1]] = np.ascontiguousarray(a.numpy())
     return tree
 
 

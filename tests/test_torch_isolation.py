@@ -1,6 +1,6 @@
 """The port stays clean of JAX: importing every module of
 ``realtime_style_transfer_torch`` and ``chip_smoke`` loads none of ``jax``,
-``flax``, ``optax`` or ``realtime_style_transfer_tpu``.  The imports run in a
+``flax``, ``optax``, ``orbax`` or ``realtime_style_transfer_tpu``.  The imports run in a
 fresh interpreter, because this test process has JAX loaded already."""
 
 import subprocess
@@ -8,7 +8,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "realtime_style_transfer_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "realtime_style_transfer_tpu")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -32,4 +32,6 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     report = json.loads(run.stdout.strip().splitlines()[-1])
     assert "realtime_style_transfer_torch.models.training" in report["modules"]
     assert "realtime_style_transfer_torch.ops.cin" in report["modules"]
+    assert "realtime_style_transfer_torch.trainer" in report["modules"]
+    assert "realtime_style_transfer_torch.train_network" in report["modules"]
     assert report["loaded"] == []
