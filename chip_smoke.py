@@ -216,6 +216,36 @@ Run from the repository root: ``python3 chip_smoke.py``.
    first, the time waiting on the prefetcher against the time in steps,
    the peak memory and the launches.
 
+11. EfficientNet at full width, rst-960-120-128-17, bf16, seeded weights.
+   (a) The V2-S predictor (``make_inference_model(feature_extractor=
+   "efficientnet")``) on a seeded 480x960 style image, held against the f32
+   eager predictor on the same weights (rtol 0.05 + atol 0.02, median <
+   5e-3) and timed by CUDA events beside the MobileNetV3 predictor; then one
+   fused frame from its style vector (16 ``conv_stage`` + 1 ``finish``
+   launches, within rtol 0.08 / atol 0.03 of the eager f32 net) and an
+   8-frame chunk (as phase 3's chunks).  (b) ``train_network.main`` with
+   ``--loss efficientnet`` (the B3 tower) on phase 10's dataset and schedule:
+   finite losses, ``cin`` launches equal to the counts derived from the
+   passes, the first step within rtol 0.05 + atol 0.02 of its plain-``cin``
+   twin; its step times, data-wait share and peak memory.  (c) One training
+   step with the V2-S tower, and one with a V2-S predictor (its 110 batch
+   norms in train mode, all 220 buffers moved) and the VGG tower: 10 + 10
+   ``cin`` launches, finite, within rtol 0.05 + atol 0.02 of the plain step.
+12. The data axis of ``parallel/`` on a one-rank NCCL group (one card):
+   ``DistributedTrainer`` (rst-960, batch 4, bf16, VGG, ``use_pallas=True``,
+   its batch norms' moments all-reduced) for two steps against the training
+   model's single-device steps from the same seed: losses within rtol 0.05 +
+   atol 0.02, parameters within two RMSprop first-step updates (1.28e-2) with
+   at most 2% of them beyond 1e-3, batch statistics within rtol 0.05 + atol
+   0.02 (over one rank the all-reduces are the identity; the moments come
+   from sums instead of means); 10 + 10 ``cin`` launches a step; both
+   steps timed in turns (4 steps a turn, CUDA events).  Then
+   ``FusedStreamStylizer(path="fused")`` on 8 frames, one a step, bit-equal
+   to ``FusedTransfer.stylize_prepacked`` (16 + 1 launches a frame), and the
+   int8 streamer, calibrated on its rank's bf16 engine with the scales
+   broadcast, each frame held to the JAX int8 bar against the bf16 kernel
+   path and to the plain int8 composition (as phase 3).
+
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -454,30 +484,19 @@ def cli_phase(note, failures) -> dict:
 
 N_TRAIN, N_VAL, N_STYLES = 8, 4, 20
 CINS = 10   # the residual CINs of 128 channels: one kernel launch each a pass
+TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
 
-def train_phase(note, failures, close) -> dict:
-    """Phase 10: the trainer CLI on the card (see the module docstring).
-    Appends to ``failures``; returns the runs' launches and times."""
+def write_train_data(note) -> None:
+    """Phase 10's dataset under ``TRAIN_ROOT``: 8 training and 4 validation
+    seeded G-buffer sets and 20 seeded style PNGs."""
     import PIL.Image
-    import torch
 
-    from realtime_style_transfer_torch import cli, train_network
     from realtime_style_transfer_torch.config import ShapeConfig
     from realtime_style_transfer_torch.data.exr import write_gbuffer_fixture
-    from realtime_style_transfer_torch.models.inference import plan_from_config
-    from realtime_style_transfer_torch.models.training import TrainState
-    from realtime_style_transfer_torch.ops import cin as cin_mod
-    from realtime_style_transfer_torch.ops import kernels
-    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
-    from realtime_style_transfer_torch.optim import RMSPropState
-    from realtime_style_transfer_torch.tracing.callbacks import Callback
-    from realtime_style_transfer_torch.tracing.checkpoint import read_tree, state_tree
-    from realtime_style_transfer_torch.tracing.metrics import read_metrics
-    from realtime_style_transfer_torch.tracing.tensorboard import read_events
 
-    t10 = time.perf_counter()
-    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    t0 = time.perf_counter()
+    root = TRAIN_ROOT
     shutil.rmtree(root, ignore_errors=True)
     cfg = ShapeConfig.from_spec(SPEC)
     h, w = cfg.input_dimensions
@@ -491,7 +510,27 @@ def train_phase(note, failures, close) -> dict:
         PIL.Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(
             root / "styles" / f"style{k:02d}.png")
     note(f"phase 10 inputs: {N_TRAIN} training + {N_VAL} validation G-buffer sets "
-         f"{h}x{w}x17 and {N_STYLES} style PNGs written in {time.perf_counter() - t10:.1f} s")
+         f"{h}x{w}x17 and {N_STYLES} style PNGs written in {time.perf_counter() - t0:.1f} s")
+
+
+def train_cli_run(note, failures, log_dir, *extra, loss="vgg"):
+    """One ``train_network.main`` run on ``TRAIN_ROOT`` (rst-960, bf16,
+    ``loss`` split, batch 4, 2 epochs unless ``extra`` says otherwise),
+    watched by a callback that counts the trainer's steps and keeps a copy of
+    its first step's state, batch and metrics.  Checks the ``cin`` launches
+    against the counts derived from the run's passes; returns the run's
+    observer, launches, passes, metrics, step times and peak memory, or None
+    when the run raised."""
+    import torch
+
+    from realtime_style_transfer_torch import train_network
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.models.training import TrainState
+    from realtime_style_transfer_torch.ops import cin as cin_mod
+    from realtime_style_transfer_torch.ops import kernels
+    from realtime_style_transfer_torch.optim import RMSPropState
+    from realtime_style_transfer_torch.tracing.callbacks import Callback
+    from realtime_style_transfer_torch.tracing.metrics import read_metrics
 
     def clone(tree):
         if isinstance(tree, dict):
@@ -533,61 +572,114 @@ def train_phase(note, failures, close) -> dict:
         def on_epoch_end(self, epoch, state, logs):
             self.epochs.append((epoch, dict(logs)))
 
+    cfg = ShapeConfig.from_spec(SPEC)
+    argv = ["--network_spec", SPEC, "--dtype", "bfloat16", "--loss", loss,
+            "--loss_tower", "split", "--epochs", "2", "--batch_size", "4",
+            "--checkpoint_cadence", "1", "--content_dir", str(TRAIN_ROOT / "content"),
+            "--style_dir", str(TRAIN_ROOT / "styles"), "--seed", "36",
+            "--log_dir", str(log_dir), *extra]
+    if cfg.with_depth_loss:
+        argv += ["--depth_checkpoint", "bundled"]
+    observer = Observer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cin_mod.reset_launch_counts()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_network.main(argv, callbacks=[observer])
+    except (SystemExit, Exception) as e:  # noqa: BLE001 — the phase reports it
+        failures.append(f"train cli {log_dir.name}: {type(e).__name__} {e}")
+        return None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cin_forward": cin_mod.cin_forward.launches,
+                "cin_backward": cin_mod.cin_backward.launches,
+                "conv_stage": kernels.conv_stage.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out != log_dir:
+        failures.append(f"train cli {log_dir.name}: main returned {out}")
+    timings = observer.trainer.timings
+    steps_ms = [t[2] * 1e3 for t in timings]
+    wait_s, step_s = sum(t[1] for t in timings), sum(t[2] for t in timings)
+    metrics = read_metrics(log_dir)
+    predictions = len(list((log_dir / "images").glob("*_prediction_*.png")))
+    grad_epochs = sorted({s for tag, vals in metrics.items() if tag.startswith("gradients/")
+                          for s, _ in vals})
+    counts = {"train": observer.train_steps, "eval": observer.eval_steps,
+              "predict": predictions, "gradients": len(grad_epochs)}
+    want = {"cin_forward": CINS * sum(counts.values()),
+            "cin_backward": CINS * (counts["train"] + counts["gradients"]),
+            "conv_stage": 0}
+    note(f"train cli {log_dir.name} ({loss} tower): epochs {[e for e, _ in observer.epochs]}, "
+         "epoch times " + ", ".join(f"{logs['epoch_time']:.3f} s" for _, logs in observer.epochs)
+         + f"; {len(steps_ms)} steps, ms a step by host clock "
+         + ", ".join(f"{v:.3f}" for v in steps_ms)
+         + (f", median after the first {float(np.median(steps_ms[1:])):.4f}"
+            if len(steps_ms) > 1 else "")
+         + f"; waiting on the prefetcher {wait_s * 1e3:.3f} ms against {step_s * 1e3:.3f} ms "
+         f"in steps (data-wait share {wait_s / (wait_s + step_s):.4f}); peak memory "
+         f"{peak:.3f} GiB; main() {wall:.1f} s")
+    print(f"  train cli {log_dir.name}: passes {counts}; launches {launches}, derived "
+          f"{want} (10 forward a pass, 10 backward a train step or gradient callback)")
+    if launches != want:
+        failures.append(f"train cli {log_dir.name} launch counts")
+    return dict(observer=observer, launches=launches, want=want, counts=counts,
+                metrics=metrics, steps_ms=steps_ms, wait_s=wait_s, step_s=step_s,
+                peak_gib=peak, wall_s=wall)
+
+
+def losses_finite(label, metrics, failures) -> None:
+    """Every training and validation loss a run logged is finite."""
+    losses = {tag: vals for tag, vals in metrics.items()
+              if tag.split("/")[0] in ("training", "validation") and "loss" in tag}
+    finite = all(np.isfinite(v) for vals in losses.values() for _, v in vals)
+    print(f"  {label} losses: " + ", ".join(f"{tag} {[round(v, 6) for _, v in vals]}"
+                                            for tag, vals in sorted(losses.items()))
+          + f" {'finite' if finite else 'NOT FINITE'}")
+    if not finite or not losses:
+        failures.append(f"{label} losses")
+
+
+def first_step_vs_plain(label, obs, failures) -> None:
+    """The trainer's first step, from the observer's copy of its state and
+    batch, against ``train_step(..., plain=True)``: each loss component
+    within rtol 0.05 + atol 0.02."""
+    tm = obs.trainer.tm
+    state0, batch0 = obs.first
+    _, plain_metrics = tm.train_step(state0, batch0, plain=True)
+    errs = {k: abs(obs.first_metrics[k] - float(v)) for k, v in plain_metrics.items()}
+    ok = set(errs) == set(obs.first_metrics) and all(
+        errs[k] <= 0.02 + 0.05 * abs(float(plain_metrics[k])) for k in errs)
+    print(f"  {label} first step vs tm.train_step(plain=True): loss components within rtol "
+          f"0.05 + atol 0.02 {'ok' if ok else 'FAIL'} ("
+          + ", ".join(f"{k} {obs.first_metrics[k]:.6g} / {float(plain_metrics[k]):.6g}"
+                      for k in sorted(errs)) + ")")
+    if not ok:
+        failures.append(f"{label} first step vs plain")
+
+
+def train_phase(note, failures, close) -> dict:
+    """Phase 10: the trainer CLI on the card (see the module docstring).
+    Appends to ``failures``; returns the runs' launches and times.  Leaves
+    the dataset for phase 11."""
+    import torch
+
+    from realtime_style_transfer_torch import cli
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.models.inference import plan_from_config
+    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
+    from realtime_style_transfer_torch.tracing.checkpoint import read_tree, state_tree
+    from realtime_style_transfer_torch.tracing.tensorboard import read_events
+
+    t10 = time.perf_counter()
+    write_train_data(note)
+    root = TRAIN_ROOT
+    cfg = ShapeConfig.from_spec(SPEC)
+    h, w = cfg.input_dimensions
+
     def run(log_dir, *extra):
-        argv = ["--network_spec", SPEC, "--dtype", "bfloat16", "--loss", "vgg",
-                "--loss_tower", "split", "--epochs", "2", "--batch_size", "4",
-                "--checkpoint_cadence", "1", "--content_dir", str(root / "content"),
-                "--style_dir", str(root / "styles"), "--seed", "36",
-                "--log_dir", str(log_dir), *extra]
-        if cfg.with_depth_loss:
-            argv += ["--depth_checkpoint", "bundled"]
-        observer = Observer()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cin_mod.reset_launch_counts()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            out = train_network.main(argv, callbacks=[observer])
-        except (SystemExit, Exception) as e:  # noqa: BLE001 — the phase reports it
-            failures.append(f"train cli {log_dir.name}: {type(e).__name__} {e}")
-            return None
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"cin_forward": cin_mod.cin_forward.launches,
-                    "cin_backward": cin_mod.cin_backward.launches,
-                    "conv_stage": kernels.conv_stage.launches}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if out != log_dir:
-            failures.append(f"train cli {log_dir.name}: main returned {out}")
-        timings = observer.trainer.timings
-        steps_ms = [t[2] * 1e3 for t in timings]
-        wait_s, step_s = sum(t[1] for t in timings), sum(t[2] for t in timings)
-        metrics = read_metrics(log_dir)
-        predictions = len(list((log_dir / "images").glob("*_prediction_*.png")))
-        grad_epochs = sorted({s for tag, vals in metrics.items() if tag.startswith("gradients/")
-                              for s, _ in vals})
-        counts = {"train": observer.train_steps, "eval": observer.eval_steps,
-                  "predict": predictions, "gradients": len(grad_epochs)}
-        want = {"cin_forward": CINS * sum(counts.values()),
-                "cin_backward": CINS * (counts["train"] + counts["gradients"]),
-                "conv_stage": 0}
-        note(f"train cli {log_dir.name}: epochs {[e for e, _ in observer.epochs]}, epoch times "
-             + ", ".join(f"{logs['epoch_time']:.3f} s" for _, logs in observer.epochs)
-             + f"; {len(steps_ms)} steps, ms a step by host clock "
-             + ", ".join(f"{v:.3f}" for v in steps_ms)
-             + (f", median after the first {float(np.median(steps_ms[1:])):.4f}"
-                if len(steps_ms) > 1 else "")
-             + f"; waiting on the prefetcher {wait_s * 1e3:.3f} ms against {step_s * 1e3:.3f} ms "
-             f"in steps (data-wait share {wait_s / (wait_s + step_s):.4f}); peak memory "
-             f"{peak:.3f} GiB; main() {wall:.1f} s")
-        print(f"  train cli {log_dir.name}: passes {counts}; launches {launches}, derived "
-              f"{want} (10 forward a pass, 10 backward a train step or gradient callback)")
-        if launches != want:
-            failures.append(f"train cli {log_dir.name} launch counts")
-        return dict(observer=observer, launches=launches, want=want, counts=counts,
-                    metrics=metrics, steps_ms=steps_ms, wait_s=wait_s, step_s=step_s,
-                    peak_gib=peak, wall_s=wall)
+        return train_cli_run(note, failures, log_dir, *extra)
 
     run1 = root / "run"
     first = run(run1)
@@ -612,28 +704,10 @@ def train_phase(note, failures, close) -> dict:
     if not all(layout.values()):
         failures.append(f"train cli run directory {layout}")
     # 2. every logged loss finite
-    losses = {tag: vals for tag, vals in first["metrics"].items()
-              if tag.split("/")[0] in ("training", "validation") and "loss" in tag}
-    finite = all(np.isfinite(v) for vals in losses.values() for _, v in vals)
-    print("  train cli losses: " + ", ".join(f"{tag} {[round(v, 6) for _, v in vals]}"
-                                              for tag, vals in sorted(losses.items()))
-          + f" {'finite' if finite else 'NOT FINITE'}")
-    if not finite or not losses:
-        failures.append("train cli losses")
+    losses_finite("train cli", first["metrics"], failures)
     # 4. the trainer's first step against the step with the kernels' plain versions
-    tm = obs.trainer.tm
-    state0, batch0 = obs.first
-    _, plain_metrics = tm.train_step(state0, batch0, plain=True)
-    errs = {k: abs(obs.first_metrics[k] - float(v)) for k, v in plain_metrics.items()}
-    ok = set(errs) == set(obs.first_metrics) and all(
-        errs[k] <= 0.02 + 0.05 * abs(float(plain_metrics[k])) for k in errs)
-    print(f"  train cli first step vs tm.train_step(plain=True): loss components within rtol "
-          f"0.05 + atol 0.02 {'ok' if ok else 'FAIL'} ("
-          + ", ".join(f"{k} {obs.first_metrics[k]:.6g} / {float(plain_metrics[k]):.6g}"
-                      for k in sorted(errs)) + ")")
-    if not ok:
-        failures.append("train cli first step vs plain")
-    del obs.first, state0, batch0
+    first_step_vs_plain("train cli", obs, failures)
+    del obs.first
     # 5. resume: starts at epoch 2 from the saved latest checkpoint, bit for bit
     saved = read_tree(run1 / "latest_ckpt" / "1.npz")
     second = run(root / "resumed", "--continue_from", str(run1), "--epochs", "3")
@@ -679,11 +753,299 @@ def train_phase(note, failures, close) -> dict:
             frame_errs.append(close(f"train cli weights: FusedTransfer frame {i} vs the eager "
                                     "f32 net", got, want, 1.6e-2, 1e-2))
     note(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
-    shutil.rmtree(root, ignore_errors=True)
+    for run_dir in (root / "run", root / "resumed"):
+        shutil.rmtree(run_dir, ignore_errors=True)
     return {name: None if r is None else {
         k: r[k] for k in ("launches", "want", "counts", "steps_ms", "wait_s", "step_s",
                           "peak_gib", "wall_s")}
         for name, r in (("run", first), ("resume", second))} | {"frame_errs": frame_errs}
+
+
+def effnet_phase(ctx) -> dict:
+    """Phase 11: EfficientNet at full width (see the module docstring).
+    ``ctx`` holds main's helpers; appends to ``ctx.failures``; returns the
+    phase's launches and times."""
+    import dataclasses
+
+    import torch
+
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.models.inference import make_inference_model
+    from realtime_style_transfer_torch.models.training import make_style_transfer_training_model
+    from realtime_style_transfer_torch.ops import cin as cin_mod
+    from realtime_style_transfer_torch.ops import kernels
+    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
+    from realtime_style_transfer_torch.weights import to_flax
+
+    failures, note, close = ctx.failures, ctx.note, ctx.close
+    t11 = time.perf_counter()
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    cfg = ShapeConfig.from_spec(SPEC)
+    h, w = cfg.output_dimensions
+    out = {}
+
+    # (a) the V2-S predictor, then a frame and a chunk from its style vector
+    v2s = make_inference_model(cfg, feature_extractor="efficientnet", dtype=bf16, seed=SEED)
+    v2s_f32 = make_inference_model(cfg, feature_extractor="efficientnet", dtype=f32, seed=SEED)
+    mnv3 = make_inference_model(cfg, dtype=bf16, seed=SEED)
+    rng = np.random.default_rng(SEED + 30)
+    style = torch.from_numpy(rng.random((1, 1, h, w, 3), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        params = v2s.predict_style_params(style)
+        params_f32 = v2s_f32.predict_style_params(style)
+        err = (params - params_f32).abs()
+        ok = (bool(torch.isfinite(params).all())
+              and bool((err <= 0.02 + 0.05 * params_f32.abs()).all())
+              and err.median().item() < 5e-3)
+        print(f"  V2-S predictor bf16 vs f32 on a {h}x{w} style: {tuple(params.shape)} "
+              f"max_abs_err {err.max().item():.3e} median {err.median().item():.3e}, limit "
+              f"rtol 0.05 + atol 0.02, median < 5e-3 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("V2-S predictor bf16 vs f32")
+        times = {}
+        for name, mdl in (("V2-S bf16", v2s), ("MobileNetV3 bf16", mnv3),
+                          ("V2-S f32", v2s_f32)):
+            times[name] = ctx.cuda_ms(lambda mdl=mdl: mdl.predict_style_params(style), 10)
+    note("predictor on one 480x960 style (CUDA events, 10 calls): "
+         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    out["predictor_ms"] = times
+    del v2s_f32.style_predictor, mnv3
+
+    fused = FusedTransfer(to_flax(v2s.transfer.state_dict()), v2s.plan)
+    prepared = fused.prepare_style(params)
+    frames = [rng.random(cfg.content_shape, dtype=np.float32) for _ in range(N_FRAMES)]
+    packs = torch.stack([fused.pack_frame_np(f[None]) for f in frames]).to(dev)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = fused.stylize_prepacked(packs[0], prepared)
+        torch.cuda.synchronize()
+        frame_launches = {"conv_stage": kernels.conv_stage.launches,
+                          "finish": kernels.finish.launches}
+        want = v2s_f32.transfer(torch.from_numpy(frames[0])[None].to(dev), params.float())
+    print(f"  V2-S-conditioned frame: launches {frame_launches}, expected "
+          f"{{'conv_stage': {len(fused.steps)}, 'finish': 1}}")
+    if frame_launches != {"conv_stage": len(fused.steps), "finish": 1} or len(fused.steps) != 16:
+        failures.append("V2-S frame launch counts")
+    out["frame_err"] = close("V2-S-conditioned fused frame vs the eager f32 net", got, want,
+                             0.08, 0.03 / max(want.abs().max().item(), 1e-6))
+    out["frame_launches"] = frame_launches
+    ctx.check_chunk("V2-S", fused, packs, prepared)
+    out["chunk_captured"] = fused.chunk_graphs[N_FRAMES].captured
+    del fused, packs, v2s, v2s_f32
+    torch.cuda.empty_cache()
+
+    # (b) the trainer CLI with the B3 tower on phase 10's dataset and schedule
+    run = train_cli_run(note, failures, TRAIN_ROOT / "effnet", loss="efficientnet")
+    if run is not None:
+        losses_finite("train cli efficientnet", run["metrics"], failures)
+        first_step_vs_plain("train cli efficientnet", run["observer"], failures)
+        out["train_cli"] = {k: run[k] for k in ("launches", "want", "counts", "steps_ms",
+                                                 "wait_s", "step_s", "peak_gib", "wall_s")}
+        del run
+    shutil.rmtree(TRAIN_ROOT / "effnet", ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) one step with the V2-S tower, one with a V2-S predictor in train mode
+    rng = np.random.default_rng(SEED + 40)
+    content = torch.from_numpy(rng.random((4,) + cfg.content_shape, dtype=np.float32)).to(dev)
+    styles = torch.from_numpy(rng.random((4,) + cfg.style_shape, dtype=np.float32)).to(dev)
+    batch = ({"content": content, "style": styles},
+             {"content": content[..., :3], "style": styles})
+    for label, config, loss in (
+            ("V2-S tower", cfg, "efficientnet_v2s"),
+            ("V2-S predictor, VGG tower", dataclasses.replace(cfg, feature_extractor="efficientnet"),
+             "vgg")):
+        tm = make_style_transfer_training_model(
+            config, loss_extractor=loss, with_depth_loss=False, dtype=bf16,
+            tower_mode="split", use_pallas=True, device=dev, seed=SEED)
+        state0 = tm.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cin_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        state1, metrics = tm.train_step(state0, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {label} step: cin launches {launches}, expected (10, 10)")
+        if launches != (10, 10):
+            failures.append(f"{label} launch counts")
+        ctx.finite(label, metrics)
+        _, plain = tm.train_step(state0, batch, plain=True)
+        ctx.metrics_close(f"{label} step, kernel vs plain cin", metrics, plain)
+        moved = [k for k in state0.batch_stats if k.startswith("style_predictor.backbone")
+                 and not torch.equal(state0.batch_stats[k], state1.batch_stats[k])]
+        n_pred = sum(k.startswith("style_predictor.backbone") for k in state0.batch_stats)
+        if config.feature_extractor == "efficientnet":
+            print(f"  {label}: the predictor's batch norm buffers moved by one step: "
+                  f"{len(moved)} of {n_pred}")
+            if n_pred != 220 or len(moved) != n_pred:
+                failures.append(f"{label} predictor batch statistics")
+        note(f"{label} train step {SPEC}, batch 4, bf16: first step {step_ms:.3f} ms by host "
+             f"clock (cold), peak memory {peak:.3f} GiB")
+        out[label] = dict(launches=launches, step_ms=step_ms, peak_gib=peak)
+        del tm, state0, state1
+        torch.cuda.empty_cache()
+    note(f"phase 11 total: {time.perf_counter() - t11:.1f} s")
+    return out
+
+
+def data_axis_phase(ctx) -> dict:
+    """Phase 12: the data axis of ``parallel/`` on a one-rank NCCL group
+    (see the module docstring).  Appends to ``ctx.failures``; returns the
+    phase's launches and differences."""
+    import torch
+    import torch.distributed as dist
+
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.models.training import make_style_transfer_training_model
+    from realtime_style_transfer_torch.ops import cin as cin_mod
+    from realtime_style_transfer_torch.ops import kernels
+    from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
+    from realtime_style_transfer_torch.parallel import (DistributedTrainer, FusedStreamStylizer,
+                                                        distributed, make_mesh)
+    from realtime_style_transfer_torch.weights import to_flax
+
+    failures, note = ctx.failures, ctx.note
+    t12 = time.perf_counter()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    distributed.initialize(f"tcp://127.0.0.1:{distributed.free_port()}", 1, 0, backend="nccl")
+    out = {}
+    try:
+        mesh = make_mesh(1)
+        print(f"  mesh {mesh.shape}, rank {mesh.rank} on {mesh.device}, backend "
+              f"{dist.get_backend()}")
+        cfg = ShapeConfig.from_spec(SPEC)
+        rng = np.random.default_rng(SEED + 50)
+        content = rng.random((4,) + cfg.content_shape, dtype=np.float32)
+        styles = rng.random((4,) + cfg.style_shape, dtype=np.float32)
+        batch = ({"content": content, "style": styles},
+                 {"content": content[..., :3], "style": styles})
+
+        def training_model():
+            return make_style_transfer_training_model(
+                cfg, loss_extractor="vgg", with_depth_loss=False, dtype=bf16,
+                tower_mode="split", use_pallas=True, device=dev, seed=SEED)
+
+        # Trainer's single-device steps, then DistributedTrainer's from the same seed
+        tm_single = training_model()
+        single = tm_single.init_state()
+        single_metrics = []
+        for _ in range(2):
+            single, m = tm_single.train_step(single, batch)
+            single_metrics.append({k: float(v) for k, v in m.items()})
+        tm = training_model()
+        trainer = DistributedTrainer(tm, mesh)
+        state = trainer.init_state()
+        cin_mod.reset_launch_counts()
+        dist_metrics = []
+        for _ in range(2):
+            state, m = trainer.train_step(state, trainer.shard_batch(batch))
+            dist_metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = (cin_mod.cin_forward.launches, cin_mod.cin_backward.launches)
+        print(f"  DistributedTrainer: 2 steps, cin launches {launches}, expected (20, 20)")
+        if launches != (20, 20):
+            failures.append("DistributedTrainer launch counts")
+        for i, (a, b) in enumerate(zip(dist_metrics, single_metrics)):
+            ctx.metrics_close(f"DistributedTrainer step {i + 1} vs Trainer's", a, b)
+        worst, far = ctx.param_diff(state, single)
+        stat_err = max((state.batch_stats[k] - single.batch_stats[k]).abs().max().item()
+                       for k in single.batch_stats)
+        stats_ok = all(bool(((state.batch_stats[k] - single.batch_stats[k]).abs()
+                             <= 0.02 + 0.05 * single.batch_stats[k].abs()).all())
+                       for k in single.batch_stats)
+        limit = 2 * ctx.lr_step
+        print(f"  DistributedTrainer vs Trainer after 2 steps: parameters max "
+              f"{worst:.3e} ({far:.3e} of elements beyond 1e-3; limit {limit:.1e}, at most "
+              f"{ctx.far_share:.0%} beyond 1e-3), batch statistics max {stat_err:.3e} (rtol "
+              f"0.05 + atol 0.02) {'ok' if worst <= limit and far <= ctx.far_share and stats_ok else 'FAIL'}")
+        if worst > limit or far > ctx.far_share or not stats_ok:
+            failures.append("DistributedTrainer vs Trainer state")
+        # step times, the two paths in turns (A B A B), 4 steps a turn, CUDA events
+        local = trainer.shard_batch(batch)
+
+        def timed(step, st):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(4):
+                st, _ = step(st, local)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / 4
+
+        torch.cuda.reset_peak_memory_stats()
+        turns = {"Trainer": [], "DistributedTrainer": []}
+        for _ in range(2):
+            turns["Trainer"].append(timed(tm_single.train_step, single))
+            turns["DistributedTrainer"].append(timed(trainer.train_step, state))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        medians = {k: float(np.median(v)) for k, v in turns.items()}
+        note(f"one-rank data-parallel step {SPEC}, batch 4, bf16, VGG, in turns of 4 steps: "
+             + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) + f" ms (median "
+                         f"{medians[k]:.4f})" for k, v in turns.items())
+             + f"; peak memory of both models {peak:.3f} GiB")
+        out["train"] = dict(launches=launches, param_max=worst, param_far=far,
+                            stats_max=stat_err, metrics=dist_metrics,
+                            single_metrics=single_metrics, step_ms=turns,
+                            step_median_ms=medians, peak_gib=peak)
+        del tm, tm_single, trainer, state, single, local
+        torch.cuda.empty_cache()
+
+        # the frame stream, one frame a rank a step, bf16 then int8
+        model = ctx.model
+        variables = to_flax(model.transfer.state_dict())
+        engine = FusedTransfer(variables, model.plan)
+        rng = np.random.default_rng(SEED + 60)
+        style_params = model.predict_style_params(torch.from_numpy(
+            rng.random((1, 1) + cfg.output_shape, dtype=np.float32)).to(dev))
+        frames = [rng.random(cfg.content_shape, dtype=np.float32) for _ in range(N_FRAMES)]
+        stream = FusedStreamStylizer(variables, model.plan, mesh, path="fused")
+        prepared = stream.prepare_style(style_params)
+        kernels.reset_launch_counts()
+        got = [stream.stylize_batch(f[None], prepared) for f in frames]
+        torch.cuda.synchronize()
+        stream_launches = {"conv_stage": kernels.conv_stage.launches,
+                           "finish": kernels.finish.launches}
+        prep = engine.prepare_style(style_params)
+        want = [engine.stylize_prepacked(engine.pack_frame_np(f[None]), prep) for f in frames]
+        same = stream.path == "fused" and all(torch.equal(a, b) for a, b in zip(got, want))
+        n_st = len(engine.steps)
+        print(f"  FusedStreamStylizer(path='fused'): {N_FRAMES} frames bit-equal to "
+              f"FusedTransfer.stylize_prepacked {'ok' if same else 'FAIL'}; launches "
+              f"{stream_launches}, expected {{'conv_stage': {n_st * N_FRAMES}, 'finish': "
+              f"{N_FRAMES}}}")
+        if not same or stream_launches != {"conv_stage": n_st * N_FRAMES, "finish": N_FRAMES}:
+            failures.append("FusedStreamStylizer bf16")
+        bf16_engine = stream.fused_engine
+        packs = [bf16_engine.pack_frame_np(f[None]) for f in frames[:N_CAL]]
+        scales = torch.as_tensor(bf16_engine.calibrate_act_scales(packs, prepared)).to(dev)
+        scales = mesh.broadcast_(scales).cpu().numpy()
+        stream8 = FusedStreamStylizer(variables, model.plan, mesh, path="fused", quant="int8",
+                                      act_scales=scales)
+        prep8 = stream8.prepare_style(style_params)
+        kernels.reset_launch_counts()
+        results = {i: stream8.stylize_batch(f[None], prep8)[0].cpu().numpy()
+                   for i, f in enumerate(frames)}
+        torch.cuda.synchronize()
+        int8_launches = {"conv_stage": kernels.conv_stage.launches,
+                         "finish": kernels.finish.launches,
+                         "act_stats": kernels.act_stats.launches}
+        print(f"  int8 FusedStreamStylizer: launches {int8_launches}, expected "
+              f"{{'conv_stage': {n_st * N_FRAMES}, 'finish': {N_FRAMES}, 'act_stats': 0}}")
+        if int8_launches != {"conv_stage": n_st * N_FRAMES, "finish": N_FRAMES, "act_stats": 0}:
+            failures.append("int8 FusedStreamStylizer launch counts")
+        errs_bf16, errs_plain, psnrs = ctx.check_int8_frames(
+            "int8 stream", bf16_engine, stream8.fused_engine, results, frames, prepared, prep8)
+        out["stream"] = dict(launches=stream_launches, int8_launches=int8_launches,
+                             int8_max_vs_bf16=max(errs_bf16, default=None),
+                             int8_min_psnr=min(psnrs, default=None))
+    finally:
+        dist.destroy_process_group()
+    note(f"phase 12 total: {time.perf_counter() - t12:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2407,6 +2769,28 @@ def main() -> int:
     if failed("phase 10"):
         return 1
 
+    # ---- phase 11: EfficientNet at full width ------------------------------------
+    ctx = SimpleNamespace(
+        failures=failures, note=note, close=close, cuda_ms=cuda_ms, check_chunk=check_chunk,
+        finite=finite, metrics_close=metrics_close, param_diff=param_diff, lr_step=lr_step,
+        far_share=far_share, check_int8_frames=check_int8_frames, model=model)
+    print(f"phase 11: EfficientNet on {SPEC}: the V2-S predictor and a frame from its style "
+          "vector; train_network --loss efficientnet; the V2-S tower and a V2-S predictor in "
+          "train mode", flush=True)
+    effnet = effnet_phase(ctx)
+    print(f"phase 11 results: {json.dumps(effnet)}", flush=True)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    if failed("phase 11"):
+        return 1
+
+    # ---- phase 12: the data axis on a one-rank NCCL group --------------------------
+    print(f"phase 12: parallel/ on a one-rank NCCL group: DistributedTrainer against "
+          f"Trainer, FusedStreamStylizer bf16 and int8, {SPEC}", flush=True)
+    data_axis = data_axis_phase(ctx)
+    print(f"phase 12 results: {json.dumps(data_axis)}", flush=True)
+    if failed("phase 12"):
+        return 1
+
     def cli_launches(kernel, *labels):
         """The launches of ``kernel`` in phase 9's runs ``labels``."""
         return {lab: cli_runs[lab]["launches"][kernel] for lab in labels}
@@ -2597,7 +2981,11 @@ def main() -> int:
               "rst1920_int8_library_ms": lib_res if isinstance(lib_res, float) else None,
               "rst1920_int8_frame_ms": int8_frame1_ms,
               "rst1920_int8_chunk_captured": chunk1["int8"]["captured"]["conv_stage"],
-              "cli_launches": cli_launches("conv_stage", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual")},
+              "cli_launches": cli_launches("conv_stage", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual"),
+              "effnet_frame_launches": effnet["frame_launches"]["conv_stage"],
+              "effnet_chunk_captured": effnet["chunk_captured"]["conv_stage"],
+              "dp_stream_launches": data_axis["stream"]["launches"]["conv_stage"],
+              "dp_int8_stream_launches": data_axis["stream"]["int8_launches"]["conv_stage"]},
              **rst1920(rows1), **rst1920(int8_rows1, "rst1920_int8_")),
         halo_entry(),
         stage_entry("conv_stage_stem", ("stem",), [r for r in window_odd if "stem" in r["name"]]),
@@ -2627,7 +3015,11 @@ def main() -> int:
          "rst1920_dual_bound_ms": max(fin1_dual["bytes_ms"], fin1_dual["ops_ms"]),
          "rst1920_library_ms": None,
          "rst1920_int8_launches": int8_run1["launches"]["finish"],
-         "cli_launches": cli_launches("finish", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual")},
+         "cli_launches": cli_launches("finish", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual"),
+         "effnet_frame_launches": effnet["frame_launches"]["finish"],
+         "effnet_chunk_captured": effnet["chunk_captured"]["finish"],
+         "dp_stream_launches": data_axis["stream"]["launches"]["finish"],
+         "dp_int8_stream_launches": data_axis["stream"]["int8_launches"]["finish"]},
         dict({"name": "act_stats", "route": "cuda", "source": f"{SOURCES}/act_stats.cu",
               "replaces": f"{TPU_KERNEL}:929", "also_replaces": f"{TPU_KERNEL}:932",
               "launches": int8_runs["int8"]["launches"]["act_stats"],
@@ -2697,6 +3089,10 @@ def main() -> int:
          "train_step_median_ms": step_turn_ms[False],
          "train_step_plain_cin_median_ms": step_turn_ms[True],
          "train_peak_gib": peak_gb, "remat_launches": remat_launches[0],
+         "effnet_train_cli_launches": effnet["train_cli"]["launches"]["cin_forward"],
+         "effnet_steps_launches": {k: effnet[k]["launches"][0]
+                                   for k in ("V2-S tower", "V2-S predictor, VGG tower")},
+         "dp_train_launches": data_axis["train"]["launches"][0],
          "plain_param_spread": spread, "kernel_vs_plain_param_diff": diff},
         {"name": "cin_backward", "route": "cuda", "source": f"{SOURCES}/cin.cu",
          "replaces": f"{CIN_KERNEL}:134",
@@ -2714,7 +3110,11 @@ def main() -> int:
          "bound_ms": cin_bounds["backward"][0], "bound_by": cin_bounds["backward"][1],
          "library_ms": None,
          "library_note": "no one PyTorch call computes an instance norm's gradient",
-         "remat_launches": remat_launches[1]},
+         "remat_launches": remat_launches[1],
+         "effnet_train_cli_launches": effnet["train_cli"]["launches"]["cin_backward"],
+         "effnet_steps_launches": {k: effnet[k]["launches"][1]
+                                   for k in ("V2-S tower", "V2-S predictor, VGG tower")},
+         "dp_train_launches": data_axis["train"]["launches"][1]},
     ]}
     note(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

@@ -20,6 +20,7 @@ ended prefetcher keeps raising ``StopIteration``.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import logging
@@ -244,11 +245,16 @@ def get_single_sample(samples: Optional[Iterable[Any]]) -> Optional[Any]:
 
 
 def _tree_map(fn, value):
+    """``fn`` on every leaf of nested dicts, tuples, lists and dataclass
+    instances (a ``TrainState``)."""
     if isinstance(value, dict):
         return {k: _tree_map(fn, v) for k, v in value.items()}
     if isinstance(value, (tuple, list)):
         out = [_tree_map(fn, v) for v in value]
         return tuple(out) if isinstance(value, tuple) else out
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return type(value)(**{f.name: _tree_map(fn, getattr(value, f.name))
+                              for f in dataclasses.fields(value)})
     return fn(value)
 
 

@@ -12,8 +12,9 @@ Parameters stay f32; a layer computes in the dtype of its input (flax's
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -89,6 +90,27 @@ class ConvTranspose(nn.Module):
         return conv2d_same(x, w.permute(3, 2, 0, 1), self.bias.to(x.dtype))
 
 
+# the cross-replica reduction of train-mode batch moments (see batch_moments_reduced)
+_MOMENTS_REDUCE: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, int]]] = None
+
+
+@contextlib.contextmanager
+def batch_moments_reduced(reduce: Callable[[torch.Tensor], Tuple[torch.Tensor, int]]
+                          ) -> Iterator[None]:
+    """Inside the block, a train-mode :class:`BatchNorm` forms its moments
+    over the global batch: ``reduce(sums)`` takes the (2, C) per-channel f32
+    sums of x and x^2 of this replica's batch and returns the sums over all
+    replicas (differentiably) and the number of replicas, which hold batches
+    of one size.  A data-parallel step runs its forward and backward inside,
+    so that each replica normalizes as one device would on the whole batch."""
+    global _MOMENTS_REDUCE
+    previous, _MOMENTS_REDUCE = _MOMENTS_REDUCE, reduce
+    try:
+        yield
+    finally:
+        _MOMENTS_REDUCE = previous
+
+
 class BatchNorm(nn.Module):
     """Batch norm on NHWC input with flax's ``nn.BatchNorm`` rules, in its
     arithmetic order ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
@@ -96,7 +118,8 @@ class BatchNorm(nn.Module):
 
     ``train=False`` uses the running statistics.  ``train=True`` uses the
     batch's: mean and ``max(E[x^2] - E[x]^2, 0)`` over (B, H, W) in f32
-    (flax's ``use_fast_variance``), and leaves the updated running
+    (flax's ``use_fast_variance``), over every replica's batch inside
+    :func:`batch_moments_reduced`, and leaves the updated running
     statistics, ``m * running + (1 - m) * batch`` with the biased variance,
     in :attr:`batch_update` without touching the buffers (``F.batch_norm``
     would update with the unbiased variance).  A rerun of the forward, as
@@ -117,8 +140,14 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             xf = x.float()
-            mean = torch.mean(xf, dim=(0, 1, 2))
-            var = torch.clamp(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, min=0.0)
+            if _MOMENTS_REDUCE is None:
+                mean = torch.mean(xf, dim=(0, 1, 2))
+                mean2 = torch.mean(xf * xf, dim=(0, 1, 2))
+            else:
+                sums, replicas = _MOMENTS_REDUCE(
+                    torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]))
+                mean, mean2 = sums / (xf[..., 0].numel() * replicas)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.batch_update = (m * self.running_mean + (1 - m) * mean,

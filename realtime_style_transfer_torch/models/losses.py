@@ -9,11 +9,12 @@ maps [0, 1] RGB images (B, H, W, 3) to ``{'content': {layer: features},
   subtract); factors content 1e4 / style 1e-3 / tv 1e-1 / depth 1e-2
 * MobileNetV3-Small: residual-add taps, batch norms on running statistics;
   factors 1e-3 / 1 / 1e-3 / 1e-4
+* EfficientNet B3 (``efficientnet``): residual-add taps, style
+  ``block{2c,3c,4e}_add``, content ``block{5e,6f,7b}_add``; the input
+  rescaled to [-1, 1] (B3 then rescales by 1/255 and normalizes); factors 1
+* EfficientNetV2-S (``efficientnet_v2s``): block taps, style
+  ``block1b, block2d, block3d, block4f``, content ``block5i``; factors 1
 * Dummy: two 3x3 convs, for fast offline tests; factors 1
-
-The EfficientNet towers (``efficientnet``, ``efficientnet_v2s``) are not
-ported yet (ROADMAP Queue 1): :func:`loss_extractor` raises
-``NotImplementedError`` for them.
 
 :func:`make_style_loss_function` composes the per-sample (B,) components
 ``loss = content L2 * f + gram-difference L2 * f + total variation * f
@@ -31,13 +32,13 @@ import torch
 from torch import nn
 
 from ..ops.image_ops import gram_matrix, mean_l2_loss_on_batch, total_variation
+from .backbones import efficientnet as effnet
 from .backbones import mobilenetv3 as mnv3_mod
 from .backbones import vgg as vgg_mod
 from .layers import Conv
 
 # Caffe-style means of tf.keras.applications.vgg16.preprocess_input (BGR order).
 VGG_BGR_MEANS = (103.939, 116.779, 123.68)
-NOT_PORTED = ("efficientnet", "efficientnet_v2s")
 TOWER_MODES = ("split", "batched", "scan")
 
 
@@ -105,20 +106,51 @@ class DummyLossExtractor(nn.Module):
         return {"content": {"dummy_conv2": out2}, "style": {"dummy_conv1": out1}}
 
 
+class EfficientNetLossExtractor(nn.Module):
+    """EfficientNet B3 residual-add taps, batch norms on running statistics."""
+
+    factors = LossFactors(1.0, 1.0, 1.0, 1.0)
+
+    def __init__(self, *, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.efficientnetb3 = effnet.EfficientNetB3(
+            effnet.STYLE_TAPS_B3 + effnet.CONTENT_TAPS_B3, dtype=dtype, generator=generator)
+
+    def forward(self, images01: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+        _, taps = self.efficientnetb3(images01 * 2.0 - 1.0)
+        return {"content": {n: taps[n] for n in effnet.CONTENT_TAPS_B3},
+                "style": {n: taps[n] for n in effnet.STYLE_TAPS_B3}}
+
+
+class EfficientNetV2SLossExtractor(nn.Module):
+    """EfficientNetV2-S block taps, batch norms on running statistics."""
+
+    factors = LossFactors(1.0, 1.0, 1.0, 1.0)
+
+    def __init__(self, *, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.efficientnetv2s = effnet.EfficientNetV2S(
+            effnet.STYLE_TAPS_V2S + effnet.CONTENT_TAPS_V2S, dtype=dtype, generator=generator)
+
+    def forward(self, images01: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+        _, taps = self.efficientnetv2s(images01 * 2.0 - 1.0)
+        return {"content": {n: taps[n] for n in effnet.CONTENT_TAPS_V2S},
+                "style": {n: taps[n] for n in effnet.STYLE_TAPS_V2S}}
+
+
 LOSS_EXTRACTORS = {
     "vgg": VGGLossExtractor,
     "mobilenet": MobileNetLossExtractor,
+    "efficientnet": EfficientNetLossExtractor,
+    "efficientnet_v2s": EfficientNetV2SLossExtractor,
     "dummy": DummyLossExtractor,
 }
 
 
 def loss_extractor(name: str, **kwargs) -> nn.Module:
-    """The loss tower ``name``; the EfficientNet towers raise
-    ``NotImplementedError`` until their backbones are ported."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} loss tower is not ported yet; it is the EfficientNet "
-            "slice of ROADMAP.md Queue 1")
+    """The loss tower ``name``, one of :data:`LOSS_EXTRACTORS`."""
     if name not in LOSS_EXTRACTORS:
         raise ValueError(f"unknown loss extractor {name!r}")
     return LOSS_EXTRACTORS[name](**kwargs)

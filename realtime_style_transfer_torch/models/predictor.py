@@ -1,9 +1,10 @@
 """Style prediction network: style image -> flat style-parameter vector.
 
 Port of ``realtime_style_transfer_tpu/models/predictor.py``: backbone (dummy
-conv / MobileNetV3-Small) -> global average pool -> 1x1 conv to a 100-dim
-bottleneck -> 1x1 conv to the transfer net's parameter count.  The MobileNet
-backbone rescales [0, 1] inputs to [-1, 1].  Head convs use
+conv / MobileNetV3-Small / EfficientNetV2-S) -> global average pool -> 1x1
+conv to a 100-dim bottleneck -> 1x1 conv to the transfer net's parameter
+count.  The MobileNet and EfficientNet backbones rescale [0, 1] inputs to
+[-1, 1].  Head convs use
 VarianceScaling(1/3, fan_out, uniform) kernels and 0.5 biases.  ``dtype`` is
 the compute dtype over f32 parameters; the output is f32.
 """
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .backbones.efficientnet import V2S_TOP_FILTERS, EfficientNetV2S
 from .backbones.mobilenetv3 import LAST_FILTERS, MobileNetV3Small
 from .layers import Conv, uniform_
 
@@ -50,9 +52,8 @@ class StylePredictor(nn.Module):
             self.backbone = MobileNetV3Small(dtype=dtype, generator=gen)
             width = LAST_FILTERS
         elif feature_extractor == EFFICIENT_NET:
-            raise NotImplementedError(
-                "the EfficientNetV2-S backbone is not ported yet; it is the "
-                "EfficientNetV2-S slice of ROADMAP.md Queue 1")
+            self.backbone = EfficientNetV2S(dtype=dtype, generator=gen)
+            width = V2S_TOP_FILTERS
         else:
             raise ValueError(f"unknown feature_extractor {feature_extractor!r}")
         self.StylePredictor = Conv(width, num_style_parameters, 1, gen=gen,

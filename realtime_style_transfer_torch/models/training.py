@@ -58,8 +58,10 @@ class TrainState:
 class StyleTransferTrainingModel:
     """The inference module, a frozen loss tower and the optimizer.
 
-    ``loss_extractor`` is one of ``{"vgg", "mobilenet", "dummy"}`` (the
-    EfficientNet towers raise ``NotImplementedError``).  Weights are drawn
+    ``loss_extractor`` is one of ``{"vgg", "mobilenet", "efficientnet",
+    "efficientnet_v2s", "dummy"}``, built frozen.  A config whose
+    ``feature_extractor`` is ``"efficientnet"`` (or ``"mobilenet"``) trains
+    its predictor's batch norms on batch statistics.  Weights are drawn
     from ``seed``: the model from ``seed``, the loss tower from ``seed + 1``,
     a MidasLite without ``depth_variables`` from ``seed + 2``.
     """

@@ -19,6 +19,16 @@ net, ``auto`` picks by :func:`..video.choose_path`.  ``--quant int8``
 calibrates the int8 engine's scales on the first frames, or loads them from
 ``--scales`` (fingerprint-verified, then saturation-checked), as the JAX CLI
 does.  Without ``--device`` it runs on CUDA and raises where there is none.
+
+``--data_parallel N`` streams the frames over N ranks, one a card (gloo
+ranks on the CPU with ``--device cpu``), through
+:class:`..parallel.infer.FusedStreamStylizer`: each rank decodes and
+stylizes one frame of every group of N, and rank 0 gathers the group and
+writes it; a last group of fewer than N frames is padded with its last frame,
+whose copies are not written.  Launched under ``torchrun --nproc_per_node N``
+the command joins that group, otherwise it starts its N ranks itself on a
+free localhost port.  ``--quant int8`` calibrates (or checks ``--scales``) on
+rank 0's bf16 engine and broadcasts the scales.
 """
 
 from __future__ import annotations
@@ -26,8 +36,11 @@ from __future__ import annotations
 import argparse
 import itertools
 import logging
+import math
+import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -116,7 +129,9 @@ def parse_args(argv=None):
     )
     p.add_argument(
         "--data_parallel", type=int, default=1, metavar="N",
-        help="shard the frame stream over N cards (not ported yet: only 1)",
+        help="shard the frame stream over N ranks, one a card (one frame a rank a "
+             "step; the fused engine is each rank's program where the plan "
+             "qualifies: parallel.infer.FusedStreamStylizer)",
     )
     return p.parse_args(argv)
 
@@ -277,9 +292,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     if args.data_parallel > 1:
-        raise SystemExit(
-            "--data_parallel > 1 is not ported yet (ROADMAP.md, Queue 1 item 4: "
-            "parallel); run with --data_parallel 1")
+        return _data_parallel(args)
     config = cli.config_from_args(args, num_styles=len(args.style))
     dtype = cli.compute_dtype(args)
     model = cli.build_inference(config, dtype=dtype, device=device)
@@ -351,6 +364,167 @@ def main(argv=None):
              sink.frame_index / max(run["loop_s"], 1e-9))
     return dict(run, path=path, latency=stats, frames_written=sink.frame_index,
                 nonfinite=sink.nonfinite)
+
+
+def _frame_sources(args, config):
+    """The frames of ``--frames_dir`` in name order, and a loader of one."""
+    from .data.hdr_screenshots import find_screenshots, load_preprocessed_gbuffer
+    from .data.imaging import list_image_paths, load_image
+
+    if config.hdr and config.total_channels > 3:
+        return find_screenshots(args.frames_dir), lambda p: load_preprocessed_gbuffer(
+            p, config.channels, config.content_shape)
+    return list_image_paths(args.frames_dir), lambda p: load_image(p, config.content_shape)
+
+
+def _data_parallel(args):
+    """``--data_parallel N``: join the torchrun group, or start N ranks."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from .parallel import distributed
+
+    path = "packed" if args.packed else args.path
+    if path == "standard":
+        raise SystemExit("--data_parallel streams through the fused/packed per-chip "
+                         "paths; use --path auto, fused or packed")
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        distributed.initialize(backend=backend)    # under torchrun
+    if dist.is_initialized():
+        return _stream_rank(args, path)
+    results = mp.get_context("spawn").SimpleQueue()
+    address = f"tcp://127.0.0.1:{distributed.free_port()}"
+    ctx = mp.spawn(_spawned_stream_rank,
+                   args=(args, path, address, backend, results),
+                   nprocs=args.data_parallel, join=False)
+    result = None
+    while not ctx.join(timeout=0.5):
+        if result is None and not results.empty():
+            result = results.get()
+    if result is None and not results.empty():
+        result = results.get()
+    return result
+
+
+def _spawned_stream_rank(rank, args, path, address, backend, results) -> None:
+    import torch.distributed as dist
+
+    from .parallel import distributed
+
+    logsetup.setup()
+    distributed.initialize(address, args.data_parallel, rank, backend=backend)
+    try:
+        out = _stream_rank(args, path)
+        if rank == 0:
+            results.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _stream_rank(args, path):
+    """One rank of the data-parallel stream; rank 0 writes the output and
+    returns the run's summary (the other ranks return None)."""
+    import torch
+
+    from .data.imaging import load_image
+    from .data.pipeline import DevicePrefetcher
+    from .models.inference import plan_from_config
+    from .parallel import make_mesh
+    from .parallel.infer import FusedStreamStylizer
+    from .tracing.profiler import FrameTimer, trace
+
+    n = args.data_parallel
+    mesh = make_mesh(n, device=args.device)
+    config = cli.config_from_args(args, num_styles=len(args.style))
+    dtype = cli.compute_dtype(args)
+    model = cli.build_inference(config, dtype=dtype, device=mesh.device)
+    variables = cli.load_variables(args.checkpoint_path, model)
+    styles = cli.load_styles(args.style, config)
+    with torch.no_grad():
+        style_params = model.predict_style_params(
+            torch.as_tensor(styles, device=mesh.device)[None])
+    wm = None
+    if config.num_styles == 1 and args.style_weights is not None:
+        raise SystemExit("-w/--style_weights needs at least two -s styles to blend")
+    if config.num_styles > 1:
+        if args.style_weights is not None:
+            wm = load_image(args.style_weights,
+                            config.output_dimensions + (config.num_styles - 1,))
+        else:
+            wm = np.zeros(config.style_weights_shape, np.float32)
+    weights = None if wm is None else wm[None]
+    plan = plan_from_config(config)
+    streamer = FusedStreamStylizer(variables, plan, mesh, num_styles=config.num_styles,
+                                   path=path, dtype=dtype)
+    log.info("data-parallel mesh: %d ranks, per-rank path: %s", n, streamer.path)
+    sources, load = _frame_sources(args, config)
+    result = {}
+    if args.quant == "int8":
+        if streamer.path != "fused":
+            raise SystemExit(
+                "--quant int8 requires the fused path; this config/mesh fell back to "
+                "'packed' (pass --path fused on a fused-family config)")
+        if not sources:
+            raise SystemExit("no frames found to calibrate --quant int8 on")
+        # calibrate (or check loaded scales) on rank 0's bf16 engine; every
+        # rank deploys the same scales, as the kernels are the same on each
+        scales, fingerprint = _get_scales(args, variables, style_params, weights)
+        engine = streamer.fused_engine
+        table = torch.zeros((engine.n_conv_stages, 128), dtype=torch.float32)
+        if mesh.is_main:
+            prepared = engine.prepare_style(style_params, weights)
+            packs = [engine.pack_frame_np(load(p)[None])
+                     for p in sources[:args.calibration_frames]]
+            report = None
+            if scales is None:
+                scales = engine.calibrate_act_scales(packs, prepared)
+            else:
+                report = engine.check_act_saturation(packs, prepared, scales)
+            table = torch.as_tensor(np.asarray(scales, np.float32))
+            _scales_ready(args, fingerprint)(np.asarray(scales), report, len(packs))
+            result.update(act_scales=table.numpy().copy(), saturation=report)
+        table = mesh.broadcast_(table.to(mesh.device)).cpu().numpy()
+        streamer = FusedStreamStylizer(variables, plan, mesh, num_styles=config.num_styles,
+                                       path="fused", dtype=dtype, quant="int8",
+                                       act_scales=table)
+    prepared = streamer.prepare_style(style_params, weights)
+
+    total = len(sources) if args.max_frames is None else min(len(sources), args.max_frames)
+    steps = math.ceil(total / n)
+    fused = streamer.path == "fused"
+    if fused:
+        prepare, stylize = streamer.fused_engine.pack_frame_np, streamer.stylize_local_prepacked
+    else:
+        def prepare(frame):
+            host = torch.from_numpy(np.ascontiguousarray(frame))
+            return host.pin_memory() if mesh.device.type == "cuda" else host
+
+        stylize = streamer.stylize_local
+    # this rank's frame of every group; the last group repeats its last frame
+    mine = (load(sources[min(g * n + mesh.rank, total - 1)])[None] for g in range(steps))
+    warm = prepare(np.zeros((1,) + config.content_shape, np.float32))
+    stylize(warm.to(mesh.device), prepared).cpu()
+    sink = (VideoSink(args.output, args.fps, args.bitrate, config.output_dimensions)
+            if mesh.is_main else None)
+    timer = FrameTimer()
+    loop_start = time.perf_counter()
+    with trace(str(args.profile_dir) if args.profile_dir and mesh.is_main else None):
+        for g, item in enumerate(DevicePrefetcher(mine, 3, device=mesh.device,
+                                                  prepare=prepare)):
+            with timer.frame():
+                group = stylize(item, prepared).cpu().numpy()
+            if sink is not None:
+                for frame in group[:min(n, total - g * n)]:
+                    sink.write(frame)
+    loop_s = time.perf_counter() - loop_start
+    if sink is None:
+        return None
+    sink.close()
+    stats = timer.percentiles()
+    log.info("step latency (%d frames/step): %s", n, {k: round(v, 3) for k, v in stats.items()})
+    return dict(result, path=streamer.path, data_parallel=n, latency=stats, loop_s=loop_s,
+                frames_written=sink.frame_index, nonfinite=sink.nonfinite)
 
 
 if __name__ == "__main__":

@@ -15,16 +15,22 @@ Twin of the repository's ``train_network.py``: the same flags, plus
 
 The training model runs every CIN of 64 channels or more on the CUDA kernels
 (``use_pallas=True``: ``csrc/cin.cu``, forward and backward); with
-``--device cpu`` their plain versions run.  ``--mesh`` is refused (the
-parallel slice is not ported), ``--profile`` writes a ``torch.profiler``
-trace under ``<log_dir>/profile``, ``--debug_nans`` turns on autograd's
-anomaly detection, and ``--disable_jit`` has no effect: the port is eager.
+``--device cpu`` their plain versions run.  ``--mesh N`` trains
+data-parallel over N ranks, one a card (gloo ranks on the CPU with
+``--device cpu``), ``--batch_size`` being the global batch: launched under
+``torchrun --nproc_per_node N`` the command joins that group, otherwise it
+starts its N ranks itself on a free localhost port.  Rank 0 alone writes the
+run directory.  ``--mesh N,S`` with ``S > 1`` (the spatial axis) is refused.
+``--profile`` writes a ``torch.profiler`` trace under ``<log_dir>/profile``,
+``--debug_nans`` turns on autograd's anomaly detection, and
+``--disable_jit`` has no effect: the port is eager.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from . import cli, resolve_device
-from .models.losses import LOSS_EXTRACTORS, NOT_PORTED, TOWER_MODES
+from .models.losses import LOSS_EXTRACTORS, TOWER_MODES
 from .tracing import logsetup
 
 log = logging.getLogger("train_network")
@@ -45,8 +51,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--epochs", type=int, default=300)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--learning_rate", type=float, default=1e-3)
-    p.add_argument("--loss", choices=sorted({*LOSS_EXTRACTORS, *NOT_PORTED}), default="vgg",
-                   help="loss tower (the EfficientNet towers are not ported yet)")
+    p.add_argument("--loss", choices=sorted(LOSS_EXTRACTORS), default="vgg")
     p.add_argument("--loss_tower", choices=TOWER_MODES, default="split",
                    help="schedule of the three loss-tower invocations (same values and "
                         "gradients)")
@@ -70,7 +75,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--seed", type=int, default=36)
     p.add_argument("--debug", action="store_true", help="100-image debug dataset")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh as data[,spatial]: not ported yet, refused")
+                   help="device mesh as data[,spatial]: data-parallel over that many "
+                        "ranks (spatial > 1 is not ported); default single device")
     p.add_argument("--profile", action="store_true",
                    help="torch.profiler trace under <log_dir>/profile")
     p.add_argument("--debug_nans", action="store_true",
@@ -93,31 +99,85 @@ def _first_samples(make_iter):
         return
 
 
-def main(argv: Optional[Sequence[str]] = None, callbacks: Sequence = ()) -> Path:
-    """Run the CLI with ``argv``; ``callbacks`` join the trainer's own.
-    Returns the run directory."""
-    args = parse_args(argv)
-    from .trainer import MESH_REFUSAL
+def mesh_ranks(spec: str) -> int:
+    """The rank count of ``--mesh data[,spatial]``; a spatial axis is refused."""
+    from .parallel.mesh import SPATIAL_REFUSAL
 
-    if args.mesh:
-        raise NotImplementedError(MESH_REFUSAL)
-    logsetup.setup()
-    device = resolve_device(args.device)
+    parts = [int(x) for x in spec.split(",")]
+    spatial = parts[1] if len(parts) > 1 else 1
+    if spatial != 1:
+        raise NotImplementedError(SPATIAL_REFUSAL)
+    return parts[0]
+
+
+def main(argv: Optional[Sequence[str]] = None, callbacks: Sequence = ()) -> Path:
+    """Run the CLI with ``argv``; ``callbacks`` join the trainer's own (on
+    every rank).  Returns the run directory."""
+    args = parse_args(argv)
+    resolve_device(args.device)
     log_dir = args.log_dir or cli.default_log_dir()
-    log_dir.mkdir(parents=True, exist_ok=True)
-    logfile = logsetup.enable_logfile(log_dir)
-    anomaly = torch.is_anomaly_enabled()
-    try:
-        torch.autograd.set_detect_anomaly(args.debug_nans)
-        _train(args, device, log_dir, callbacks)
-    finally:
-        torch.autograd.set_detect_anomaly(anomaly)
-        logging.getLogger().removeHandler(logfile)
-        logfile.close()
+    ranks = mesh_ranks(args.mesh) if args.mesh else None
+    if ranks is None:
+        _run(args, log_dir, callbacks)
+        return log_dir
+    import torch.distributed as dist
+
+    from .parallel import distributed
+
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        distributed.initialize(backend=backend)    # under torchrun
+    if dist.is_initialized() or ranks == 1:
+        _run(args, log_dir, callbacks, ranks=ranks)
+        return log_dir
+    import torch.multiprocessing as mp
+
+    address = f"tcp://127.0.0.1:{distributed.free_port()}"
+    mp.spawn(_spawned_rank, args=(args, log_dir, callbacks, ranks, address, backend),
+             nprocs=ranks, join=True)
     return log_dir
 
 
-def _train(args, device: torch.device, log_dir: Path, extra_callbacks: Sequence) -> None:
+def _spawned_rank(rank: int, args, log_dir: Path, callbacks: Sequence, ranks: int,
+                  address: str, backend: str) -> None:
+    import torch.distributed as dist
+
+    from .parallel import distributed
+
+    distributed.initialize(address, ranks, rank, backend=backend)
+    try:
+        _run(args, log_dir, callbacks, ranks=ranks)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, log_dir: Path, callbacks: Sequence, ranks: Optional[int] = None) -> None:
+    """Train in this process: alone, or as one rank of a ``ranks``-rank mesh."""
+    mesh = None
+    if ranks is not None:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(ranks, device=args.device)
+    logsetup.setup()
+    main_rank = mesh is None or mesh.is_main
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    logfile = None
+    if main_rank:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        logfile = logsetup.enable_logfile(log_dir)
+    anomaly = torch.is_anomaly_enabled()
+    try:
+        torch.autograd.set_detect_anomaly(args.debug_nans)
+        _train(args, device, log_dir, callbacks, mesh)
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly)
+        if logfile is not None:
+            logging.getLogger().removeHandler(logfile)
+            logfile.close()
+
+
+def _train(args, device: torch.device, log_dir: Path, extra_callbacks: Sequence,
+           mesh=None) -> None:
     from .data import wikiart
     from .data.imaging import list_image_paths
     from .data.pipeline import get_single_sample
@@ -131,9 +191,11 @@ def _train(args, device: torch.device, log_dir: Path, extra_callbacks: Sequence)
     from .tracing.textsummary import capture_model_summary
     from .trainer import Trainer
 
+    main_rank = mesh is None or mesh.is_main
     config = cli.config_from_args(args)
     log.info("config: %s", config.to_spec())
-    (log_dir / "config.json").write_text(config.to_json())
+    if main_rank:
+        (log_dir / "config.json").write_text(config.to_json())
 
     depth_variables = None
     if args.depth_checkpoint is not None:
@@ -174,24 +236,31 @@ def _train(args, device: torch.device, log_dir: Path, extra_callbacks: Sequence)
             "no training samples found — check --content_dir/--style_dir "
             "(expected training/ and validation/ subdirectories)")
 
-    writer = MetricsWriter(log_dir)
-    checkpoints = CheckpointManager(log_dir, cadence=args.checkpoint_cadence)
-    val_batch = get_single_sample(_first_samples(make_val))
-    train_batch = get_single_sample(_first_samples(make_train))
-    callbacks = [
-        MetricsCallback(writer),
-        CheckpointCallback(checkpoints),
-        HistogramCallback(writer, every=5),
-    ]
-    if val_batch is not None and train_batch is not None:
-        callbacks.append(SummaryImageCallback(log_dir, tm, val_batch, train_batch))
-        callbacks.append(GradientsCallback(writer, tm, val_batch, every=5))
+    if mesh is not None:
+        log.info("mesh: %s, this rank %d on %s", mesh.shape, mesh.rank, mesh.device)
+    # rank 0 alone writes the run directory: metrics, checkpoints, summaries
+    writer, callbacks = None, []
+    if main_rank:
+        writer = MetricsWriter(log_dir)
+        checkpoints = CheckpointManager(log_dir, cadence=args.checkpoint_cadence)
+        val_batch = get_single_sample(_first_samples(make_val))
+        train_batch = get_single_sample(_first_samples(make_train))
+        callbacks = [
+            MetricsCallback(writer),
+            CheckpointCallback(checkpoints),
+            HistogramCallback(writer, every=5),
+        ]
+        if val_batch is not None and train_batch is not None:
+            callbacks.append(SummaryImageCallback(log_dir, tm, val_batch, train_batch))
+            callbacks.append(GradientsCallback(writer, tm, val_batch, every=5))
     callbacks.extend(extra_callbacks)
 
-    trainer = Trainer(tm, log_dir=log_dir, callbacks=callbacks, metrics_writer=writer)
+    trainer = Trainer(tm, mesh=mesh, log_dir=log_dir, callbacks=callbacks,
+                      metrics_writer=writer)
     state = trainer.init_state()
-    writer.write_text("model_summary", capture_model_summary(state.params))
-    writer.write_text("config", config.to_json())
+    if writer is not None:
+        writer.write_text("model_summary", capture_model_summary(state.params))
+        writer.write_text("config", config.to_json())
 
     initial_epoch = 0
     if args.continue_from:
@@ -199,11 +268,12 @@ def _train(args, device: torch.device, log_dir: Path, extra_callbacks: Sequence)
         state, initial_epoch = trainer.resume(state, prev)
 
     try:
-        with trace(str(log_dir / "profile") if args.profile else None):
+        with trace(str(log_dir / "profile") if args.profile and main_rank else None):
             trainer.fit(state, make_train, make_val, epochs=args.epochs,
                         initial_epoch=initial_epoch)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     log.info("done; artifacts in %s", log_dir)
 
 

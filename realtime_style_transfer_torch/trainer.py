@@ -10,6 +10,12 @@ every metric (one ``.item()`` a metric), as the JAX trainer's
 ``jax.device_get(metrics)`` does.  The port is eager: the steps are the
 training model's own methods.
 
+``Trainer(mesh=...)`` trains data-parallel over the ranks of a
+:func:`.parallel.make_mesh` mesh through
+:class:`.parallel.DistributedTrainer`: each rank's prefetcher carries its
+slice of every global batch (the batch size stays the global one, as in
+JAX), the state starts as rank 0's, and the metrics are the global batch's.
+
 ``Trainer.timings`` records, for every training step, the host's wait for
 the prefetcher and the step itself up to its metrics on the host, in
 seconds by ``time.perf_counter``.
@@ -29,10 +35,6 @@ from .tracing.checkpoint import CheckpointManager
 
 log = logging.getLogger(__name__)
 
-MESH_REFUSAL = ("training over a device mesh is not ported yet; it is the parallel "
-                "slice of ROADMAP.md Queue 1 item 4")
-
-
 class Trainer:
     def __init__(
         self,
@@ -43,15 +45,21 @@ class Trainer:
         callbacks: Sequence[Callback] = (),
         metrics_writer=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
         self.tm = training_model
         self.mesh = mesh
         self.log_dir = Path(log_dir) if log_dir else None
         self.callbacks: List[Callback] = list(callbacks)
         self.metrics_writer = metrics_writer
-        self._train_step = training_model.train_step
-        self._eval_step = training_model.eval_step
+        if mesh is not None:
+            from .parallel.train import DistributedTrainer
+
+            self._dist = DistributedTrainer(training_model, mesh)
+            self._train_step = self._dist.train_step
+            self._eval_step = self._dist.eval_step
+        else:
+            self._dist = None
+            self._train_step = training_model.train_step
+            self._eval_step = training_model.eval_step
         # one entry a training step: (epoch, wait_s, step_s)
         self.timings: List[tuple] = []
 
@@ -59,7 +67,9 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """The training model's initial state (its weights come from the
-        model's seed)."""
+        model's seed; over a mesh, rank 0's)."""
+        if self._dist is not None:
+            return self._dist.init_state()
         return self.tm.init_state()
 
     def resume(self, state: TrainState, checkpoints: CheckpointManager):
@@ -79,6 +89,10 @@ class Trainer:
                    epoch: int = 0):
         sums: Dict[str, float] = {}
         count = 0
+        if self._dist is not None:
+            from .parallel.mesh import host_shard
+
+            batches = (host_shard(batch, self.mesh) for batch in batches)
         prefetcher = DevicePrefetcher(batches, depth=prefetch, device=self.tm.device)
         while True:
             t0 = time.perf_counter()

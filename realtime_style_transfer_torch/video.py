@@ -51,11 +51,16 @@ def choose_path(config: ShapeConfig, plan: TransferPlan, device) -> str:
     multiple of 8, with at most 128 bottleneck filters and at most one style
     on the 3-contract plan (two otherwise), on a CUDA device; else
     ``"packed"``."""
+    return choose_plan_path(plan, config.num_styles, device)
+
+
+def choose_plan_path(plan: TransferPlan, num_styles: int, device) -> str:
+    """:func:`choose_path` for a plan and a style count."""
     fused_ok = (
         (plan.num_contract_blocks, plan.num_expand_blocks) in ((2, 2), (3, 3))
         and (plan.input_shape[1] // (4 * plan.num_contract_blocks - 4)) % 8 == 0
         and plan.bottleneck_num_filters <= 128
-        and config.num_styles <= (1 if plan.num_contract_blocks == 3 else 2)
+        and num_styles <= (1 if plan.num_contract_blocks == 3 else 2)
         and torch.device(device).type == "cuda"
     )
     return "fused" if fused_ok else "packed"

@@ -16,6 +16,8 @@ flax leaf              port leaf                    layout
 ``params/.../scale``   ``....weight`` (batch norm)
 ``batch_stats/.../mean``  ``....running_mean``
 ``batch_stats/.../var``   ``....running_var``
+``batch_stats/.../variance``  ``....running_variance``  (EfficientNet B3's
+                                                    ``Normalization``)
 =====================  ===========================  ==========================
 
 Both directions raise on a leaf they do not consume; with ``expected``,
@@ -41,7 +43,7 @@ from torch import nn
 
 _TRANSPOSE = re.compile(r"(^|\.)expand_\d+_conv$")
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
-_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var", "variance": "running_variance"}
 
 
 def _flatten(variables) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -111,7 +113,7 @@ def flax_key(key: str, ndim: int) -> Tuple[str, Tuple[str, ...], bool]:
         collection, name = "params", "scale"
     elif leaf == "bias":
         collection, name = "params", "bias"
-    elif leaf in ("running_mean", "running_var"):
+    elif leaf in _STAT_LEAVES.values():
         collection, name = "batch_stats", leaf[len("running_"):]
     else:
         raise ValueError(f"port leaf {key} has no flax counterpart")

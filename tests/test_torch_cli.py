@@ -192,8 +192,11 @@ def test_cli_refusals(setup, case, monkeypatch, tmp_path):
         with pytest.raises(SystemExit, match="requires the fused path"):
             _main(setup, "bad", "--path", "packed", "--quant", "int8")
     elif case == "data_parallel":
-        with pytest.raises(SystemExit, match="Queue 1 item 4"):
-            _main(setup, "bad", "--data_parallel", "2")
+        # --data_parallel is ported (tests/test_torch_parallel.py); it streams
+        # through the fused or packed engines only, as the JAX CLI
+        with pytest.raises(SystemExit, match="use --path auto, fused or packed"):
+            _main(setup, "bad", "--data_parallel", "2", "--path", "standard")
+        assert not (setup.root / "bad").exists()
     elif case == "no_device_without_cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         argv = ["--network_spec", SPEC, "-C", str(setup.ckpt), "-s", str(setup.styles[0]),

@@ -293,8 +293,10 @@ def test_unsupported_modes_raise_not_implemented(flagship_tiny):
         FusedTransfer(variables, three, num_styles=2, device="cpu")
     with pytest.raises(ValueError, match="1 or 2 styles"):
         FusedTransfer(variables, TPLAN, num_styles=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="EfficientNetV2-S"):
-        TPredictor(10, "efficientnet")
+    # the V2-S predictor is ported: it builds with its 1280-wide head input
+    v2s = TPredictor(10, "efficientnet")
+    assert v2s.backbone.block_names[-1] == "block6o"
+    assert v2s.StylePredictor.weight.shape[1] == 1280
     with pytest.raises(ValueError):
         FusedTransfer(variables, tplan(TConfig(resolution_divider=16, bottleneck_res_y=30,
                                                bottleneck_num_filters=4, num_channels=3,

@@ -34,4 +34,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert "realtime_style_transfer_torch.ops.cin" in report["modules"]
     assert "realtime_style_transfer_torch.trainer" in report["modules"]
     assert "realtime_style_transfer_torch.train_network" in report["modules"]
+    assert "realtime_style_transfer_torch.models.backbones.efficientnet" in report["modules"]
+    for name in ("distributed", "mesh", "train", "infer"):
+        assert f"realtime_style_transfer_torch.parallel.{name}" in report["modules"]
     assert report["loaded"] == []

@@ -150,9 +150,12 @@ def test_multi_style_and_unported_towers_are_refused(towers):
                                           "style": t(images((1, 2, 8, 8, 3), 2))})
     with pytest.raises(ValueError, match="tower_mode"):
         tlosses.make_style_loss_function(tmod, tmod.factors, tower_mode="loop")
-    for name in ("efficientnet", "efficientnet_v2s"):
-        with pytest.raises(NotImplementedError):
-            tlosses.loss_extractor(name)
+    with pytest.raises(ValueError, match="unknown loss extractor"):
+        tlosses.loss_extractor("efficientnet_b7")
+    # the EfficientNet towers are ported: both build, named as the JAX modules
+    assert set(tlosses.LOSS_EXTRACTORS) == set(jlosses.LOSS_EXTRACTORS)
+    assert hasattr(tlosses.loss_extractor("efficientnet"), "efficientnetb3")
+    assert hasattr(tlosses.loss_extractor("efficientnet_v2s"), "efficientnetv2s")
 
 
 @pytest.fixture(scope="module")

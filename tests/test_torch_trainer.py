@@ -289,8 +289,22 @@ def test_weights_artifact_loads_through_the_cli(fits):
 
 
 def test_mesh_is_refused(fits):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(fits["tm"], mesh=object())
+    """No longer refused: over a mesh of one process (no group) the trainer
+    takes the single device's steps bit for bit (the gloo ranks against JAX's
+    data mesh: tests/test_torch_parallel.py)."""
+    from realtime_style_transfer_torch.parallel import make_mesh
+
+    tm = fits["tm"]
+    trainer = Trainer(tm, mesh=make_mesh(1, device="cpu"))
+    assert trainer._dist.data_parallelism == 1
+    state = trainer.init_state()
+    batch = fits["batches"][0]
+    got, metrics = trainer._train_step(state, batch)
+    want, want_metrics = tm.train_step(tm.init_state(), batch)
+    for k in want_metrics:
+        assert torch.equal(metrics[k], want_metrics[k]), k
+    for k in want.params:
+        assert torch.equal(got.params[k], want.params[k]), k
 
 
 def test_predict_datapoint_figure(fits, tmp_path):
