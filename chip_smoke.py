@@ -245,6 +245,29 @@ Run from the repository root: ``python3 chip_smoke.py``.
    int8 streamer, calibrated on its rank's bf16 engine with the scales
    broadcast, each frame held to the JAX int8 bar against the bf16 kernel
    path and to the plain int8 composition (as phase 3).
+13. The deploy and analysis CLIs at rst-960-120-128-17, bf16, each ``main``
+   called in this process on phase 10's weights artifact, G-buffer sets and
+   styles, each call timed by CUDA events.  (a) ``predict_using_checkpoint`` one style (with ``-p``)
+   and two styles with a vertical ramp ``-w`` map: each PNG equal bit for bit
+   to ``image_to_uint8`` of the eager net's output on the same inputs.  (b)
+   ``predict_style_params``: 2662 floats that read back equal bit for bit to
+   the predictor's vector; ``compare_unreal_style_params`` on that buffer
+   prints a max |unreal - python| of 0.  (c) ``save_using_checkpoint``
+   writes the seven artifacts (their sizes and each ``torch.export``'s time
+   printed); ``predict_using_saved_models`` on them gives a PNG within rtol
+   0.05 + atol 0.02, median < 5e-3, of (a)'s one-style PNG.  (d)
+   ``transfer.onnx`` at 480x960 and ``predictor.onnx`` at full width (a
+   480x960 style) through the port's numpy interpreter, within rtol 1e-3 +
+   atol 1e-4 of the eager f32 net on the card (TF32 is off for the whole
+   script), each timed.  (e)
+   ``compute_permutation_feature_importance --max_batches 1`` twice (the
+   second run resumes from ``progress.pkl`` and evaluates nothing),
+   ``compute_gradient_explanation``, ``generate_feature_permutation_
+   visualization``, ``depth_analysis --depth_weights bundled`` on a set's
+   ``_SceneDepth.exr`` and ``show_unreal_tensor_buffer -o``: every file they
+   name exists and every value in their tables is finite.  (f) No kernel
+   wrapper's launch counter moves across the phase: the deploy path runs the
+   eager net in torch ops, as the JAX CLIs run ``use_pallas=False``.
 
 Any failed phase exits non-zero.  The last lines are the kernel table as one
 JSON object, the ``nvidia-smi`` name and power limit, and
@@ -485,6 +508,8 @@ def cli_phase(note, failures) -> dict:
 N_TRAIN, N_VAL, N_STYLES = 8, 4, 20
 CINS = 10   # the residual CINs of 128 channels: one kernel launch each a pass
 TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+DEPLOY_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_deploy"
+PHASE10_WEIGHTS = TRAIN_ROOT / "phase10_weights.npz"
 
 
 def write_train_data(note) -> None:
@@ -753,6 +778,7 @@ def train_phase(note, failures, close) -> dict:
             frame_errs.append(close(f"train cli weights: FusedTransfer frame {i} vs the eager "
                                     "f32 net", got, want, 1.6e-2, 1e-2))
     note(f"phase 10 total: {time.perf_counter() - t10:.1f} s")
+    shutil.copy2(run1 / "weights" / "latest_epoch_weights.npz", PHASE10_WEIGHTS)  # phase 13's
     for run_dir in (root / "run", root / "resumed"):
         shutil.rmtree(run_dir, ignore_errors=True)
     return {name: None if r is None else {
@@ -1046,6 +1072,231 @@ def data_axis_phase(ctx) -> dict:
         dist.destroy_process_group()
     note(f"phase 12 total: {time.perf_counter() - t12:.1f} s")
     return out
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter."""
+    from realtime_style_transfer_torch.ops import (
+        cin, conv_matmul, kernels, probe_int8, probe_repack, probe_smem)
+
+    fns = {"conv_stage": kernels.conv_stage, "finish": kernels.finish,
+           "act_stats": kernels.act_stats, "cin_forward": cin.cin_forward,
+           "cin_backward": cin.cin_backward, "conv_matmul": conv_matmul.conv_valid_matmul,
+           "probe_mm": probe_int8.probe_mm, "probe_band": probe_int8.probe_band,
+           "deinterleave": probe_repack.deinterleave, "interleave": probe_repack.interleave,
+           "fold2": probe_repack.fold2, "unfold2": probe_repack.unfold2,
+           "try_alloc": probe_smem.try_alloc, "smem_work": probe_smem.work}
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def deploy_phase(ctx) -> dict:
+    """Phase 13: the deploy and analysis CLIs on the card (see the module
+    docstring).  Appends to ``ctx.failures``; returns the phase's times."""
+    import PIL.Image
+    import torch
+
+    from realtime_style_transfer_torch import (
+        cli, compare_unreal_style_params, compute_gradient_explanation,
+        compute_permutation_feature_importance, depth_analysis,
+        generate_feature_permutation_visualization, predict_style_params,
+        predict_using_checkpoint, predict_using_saved_models, save_using_checkpoint,
+        show_unreal_tensor_buffer)
+    from realtime_style_transfer_torch.config import ShapeConfig
+    from realtime_style_transfer_torch.data.imaging import image_to_uint8, load_image
+    from realtime_style_transfer_torch.data.native import read_tensor_buffer, write_tensor_buffer
+    from realtime_style_transfer_torch.export.onnx_numpy import run_model
+
+    failures, note = ctx.failures, ctx.note
+    t13 = time.perf_counter()
+    before = launch_counters()
+    root = DEPLOY_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = ShapeConfig.from_spec(SPEC)
+    h, w = cfg.input_dimensions
+    weights = PHASE10_WEIGHTS
+    val = TRAIN_ROOT / "content" / "validation"
+    content = sorted(val.glob("*.png"))[0]
+    styles = sorted((TRAIN_ROOT / "styles").glob("*.png"))[:2]
+    ramp = root / "ramp.png"
+    PIL.Image.fromarray(np.repeat(np.linspace(0, 255, h)[:, None], w, 1).astype(np.uint8)).save(
+        ramp)
+    base = ["--network_spec", SPEC, "-C", str(weights)]
+    times = {}
+
+    def timed(label, fn):
+        """``fn()``'s result; its time by CUDA events (ms) goes to ``times``."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[label] = start.elapsed_time(end)
+        return out
+
+    def check(label, ok, detail=""):
+        print(f"  {label}: {detail} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(label)
+
+    def png(path):
+        return np.asarray(PIL.Image.open(path))
+
+    def eager(n_styles, dtype):
+        cfg_n = ShapeConfig.from_spec(SPEC, num_styles=n_styles)
+        model = cli.build_inference(cfg_n, dtype=dtype)
+        cli.load_variables(weights, model)
+        return cfg_n, model
+
+    # (a) the single-image CLI, one style and two with a -w map
+    one = timed("predict_using_checkpoint, one style", lambda: predict_using_checkpoint.main(
+        base + ["-c", str(content), "-s", str(styles[0]), "-o", str(root / "one.png"), "-p"]))
+    two = timed("predict_using_checkpoint, two styles -w", lambda: predict_using_checkpoint.main(
+        base + ["-c", str(content), "-s", str(styles[0]), "-s", str(styles[1]), "-w", str(ramp),
+                "-o", str(root / "two.png")]))
+    cfg1, model = eager(1, torch.bfloat16)
+    cfg2, model2 = eager(2, torch.bfloat16)
+    c = torch.as_tensor(cli.load_content(content, cfg1)[None], device="cuda")
+    s1 = torch.as_tensor(cli.load_styles(styles[:1], cfg1)[None], device="cuda")
+    s2 = torch.as_tensor(cli.load_styles(styles, cfg2)[None], device="cuda")
+    wm = torch.as_tensor(load_image(ramp, (h, w, 1))[None], device="cuda")
+    with torch.no_grad():
+        want1 = model(c, s1, None, train=False)[0].float().cpu().numpy()
+        want2 = model2(c, s2, wm, train=False)[0].float().cpu().numpy()
+    for label, path, want in (("one style", one, want1), ("two styles -w", two, want2)):
+        differ = int((png(path) != image_to_uint8(want)).sum())
+        check(f"deploy (a) predict_using_checkpoint {label} PNG vs the eager net",
+              differ == 0 and png(path).shape == (h, w, 3),
+              f"{differ} uint8 values differ (bit-equal wanted), call "
+              f"{times[f'predict_using_checkpoint, {label}']:.1f} ms (CUDA events)")
+    check("deploy (a) content preview", (root / "one_content.png").is_file())
+
+    # (b) the engine's style-param buffer
+    buf = root / "style_params.bin"
+    params = timed("predict_style_params", lambda: predict_style_params.main(
+        base + ["-s", str(styles[0]), "-o", str(buf)]))
+    with torch.no_grad():
+        want_p = model.predict_style_params(s1)[0, 0].float().cpu().numpy()
+    n_p = model.plan.num_style_parameters
+    back = read_tensor_buffer(buf, (n_p,))
+    check("deploy (b) style-param buffer", n_p == 2662 and back.tobytes() == want_p.tobytes()
+          and back.tobytes() == params.tobytes(),
+          f"{back.size} floats (2662 wanted), bit-equal to the predictor's vector "
+          f"{back.tobytes() == want_p.tobytes()}, call {times['predict_style_params']:.1f} ms")
+    table = timed("compare_unreal_style_params", lambda: compare_unreal_style_params.main(
+        base + ["-s", str(styles[0]), "-b", str(buf)]))
+    row = [ln for ln in table.splitlines() if ln.startswith("|unreal - python|")]
+    diff = float(row[0].split()[-2]) if row else float("nan")
+    check("deploy (b) compare_unreal_style_params", diff == 0.0,
+          f"max |unreal - python| {diff} (0 wanted)")
+
+    # (c) the exported artifacts
+    export_dir = root / "export"
+    saved = timed("save_using_checkpoint", lambda: save_using_checkpoint.main(
+        base + ["-o", str(export_dir)]))
+    names = ("config.json", "inference.pt2", "predictor.pt2", "transfer.pt2", "transfer.onnx",
+             "predictor.onnx", "checkpoint")
+    present = {n: (export_dir / n).exists() for n in names}
+    check("deploy (c) save_using_checkpoint artifacts", all(present.values()),
+          f"{present}; sizes (bytes) {saved['sizes']}; torch.export + save (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in saved["export_s"].items())
+          + f"; call {times['save_using_checkpoint'] / 1e3:.1f} s")
+    from_saved = timed("predict_using_saved_models", lambda: predict_using_saved_models.main(
+        ["-m", str(export_dir), "-c", str(content), "-s", str(styles[0]),
+         "-o", str(root / "saved.png")]))
+    got = torch.from_numpy(png(from_saved).astype(np.float32) / 255.0)
+    ref = torch.from_numpy(png(one).astype(np.float32) / 255.0)
+    err = (got - ref).abs()
+    ok = bool((err <= 0.02 + 0.05 * ref.abs()).all()) and float(err.median()) < 5e-3
+    check("deploy (c) predict_using_saved_models vs predict_using_checkpoint", ok,
+          f"max {float(err.max()) * 255:.0f} levels, median {float(err.median()):.3e} "
+          f"(rtol 0.05, atol 0.02, median < 5e-3), call "
+          f"{times['predict_using_saved_models']:.1f} ms")
+
+    # (d) the ONNX files through the numpy interpreter against the f32 eager net
+    _, model32 = eager(1, torch.float32)
+    with torch.no_grad():
+        p32 = model32.predict_style_params(s1)[:, 0]
+        want_t = model32.stylize(c, p32[:, None])[0].cpu().numpy()
+    t0 = time.perf_counter()
+    got_p = run_model((export_dir / "predictor.onnx").read_bytes(),
+                      {"style": s1[:, 0].cpu().numpy()})["style_params"]
+    times[f"predictor.onnx (numpy, {h}x{w} style)"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got_t = run_model((export_dir / "transfer.onnx").read_bytes(),
+                      {"content": c.cpu().numpy(), "style_params": p32.cpu().numpy()})["stylized"]
+    times[f"transfer.onnx (numpy, {h}x{w})"] = (time.perf_counter() - t0) * 1e3
+    for label, a, b in ((f"predictor.onnx at full width ({h}x{w} style)", got_p,
+                         p32.cpu().numpy()),
+                        (f"transfer.onnx at {h}x{w}", got_t[0], want_t)):
+        e = np.abs(a - b)
+        ok = bool(np.all(e <= 1e-4 + 1e-3 * np.abs(b))) and bool(np.isfinite(a).all())
+        check(f"deploy (d) {label} vs the eager f32 net (TF32 off)", ok,
+              f"max_abs_err {e.max():.3e} (rtol 1e-3, atol 1e-4)")
+
+    # (e) the analysis scripts on phase 10's G-buffer sets and styles
+    analysis = base + ["--content_dir", str(val), "--style_dir", str(TRAIN_ROOT / "styles"),
+                       "--max_batches", "1"]
+
+    def finite_rows(rows):
+        return bool(rows) and all(np.isfinite(v) for r in rows for v in r.values()
+                                  if isinstance(v, float))
+
+    imp_dir = root / "importance"
+    first = timed("compute_permutation_feature_importance", lambda: (
+        compute_permutation_feature_importance.main(analysis + ["-o", str(imp_dir)])))
+    again = timed("compute_permutation_feature_importance, resumed", lambda: (
+        compute_permutation_feature_importance.main(analysis + ["-o", str(imp_dir)])))
+    n_groups = len(cfg.channels)
+    files = [imp_dir / n for n in ("importance.csv", "importance.tex", "progress.pkl")]
+    check("deploy (e) compute_permutation_feature_importance",
+          first["evaluated"] == n_groups + 1 and again["evaluated"] == 0
+          and again["rows"] == first["rows"] and finite_rows(first["rows"])
+          and all(f.is_file() for f in files),
+          f"{first['evaluated']} losses evaluated ({n_groups + 1} wanted), resumed "
+          f"{again['evaluated']}; rows {first['rows']}")
+    grad_rows = timed("compute_gradient_explanation", lambda: compute_gradient_explanation.main(
+        analysis + ["-o", str(root / "grads")]))
+    check("deploy (e) compute_gradient_explanation",
+          finite_rows(grad_rows) and len(grad_rows) == n_groups
+          and (root / "grads" / "gradient_attribution.csv").is_file(), f"rows {grad_rows}")
+    written = timed("generate_feature_permutation_visualization", lambda: (
+        generate_feature_permutation_visualization.main(
+            base + ["--content_dir", str(val), "-s", str(styles[0]),
+                    "-o", str(root / "viz")])))
+    check("deploy (e) generate_feature_permutation_visualization",
+          len(written) == n_groups + 1 and all(p.is_file() for p in written),
+          f"{len(written)} images")
+    depth_table = timed("depth_analysis", lambda: depth_analysis.main(
+        ["--screenshot", str(content), "--depth_weights", "bundled",
+         "-o", str(root / "depth")]))
+    # four rows (both arrays, their difference and its magnitude) of five numbers
+    values = [float(v) for ln in depth_table.splitlines()[1:] for v in ln.split()[-5:]]
+    check("deploy (e) depth_analysis",
+          len(values) == 20 and all(np.isfinite(values)) and all(
+              (root / "depth" / n).is_file()
+              for n in ("rgb.png", "predicted_depth.png", "scene_depth.png")),
+          depth_table.replace("\n", " | "))
+    image = root / "stylized.bin"
+    write_tensor_buffer(image, want1)
+    shown = timed("show_unreal_tensor_buffer", lambda: show_unreal_tensor_buffer.main(
+        [str(image), "--shape", str(h), str(w), "3", "-o", str(root / "stylized.png")]))
+    check("deploy (e) show_unreal_tensor_buffer",
+          np.array_equal(png(root / "stylized.png"), image_to_uint8(shown))
+          and np.array_equal(shown, want1), "PNG of the written buffer")
+
+    # (f) no kernel of the port ran on the deploy path
+    after = launch_counters()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check("deploy (f) kernel launches across the phase", not moved,
+          f"{moved or 'none'} (0 wanted of every wrapper: {sorted(after)})")
+    note("phase 13 times (CUDA events around each call, ms): "
+         + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    note(f"phase 13 total: {time.perf_counter() - t13:.1f} s")
+    return {"times_ms": times, "sizes": saved["sizes"], "export_s": saved["export_s"],
+            "launches": moved}
 
 
 def main() -> int:
@@ -2779,7 +3030,6 @@ def main() -> int:
           "train mode", flush=True)
     effnet = effnet_phase(ctx)
     print(f"phase 11 results: {json.dumps(effnet)}", flush=True)
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     if failed("phase 11"):
         return 1
 
@@ -2789,6 +3039,15 @@ def main() -> int:
     data_axis = data_axis_phase(ctx)
     print(f"phase 12 results: {json.dumps(data_axis)}", flush=True)
     if failed("phase 12"):
+        return 1
+
+    # ---- phase 13: the deploy and analysis CLIs ------------------------------------
+    print(f"phase 13: the deploy and analysis CLIs on {SPEC}, bf16, from phase 10's weights "
+          "artifact and data", flush=True)
+    deploy = deploy_phase(ctx)
+    print(f"phase 13 results: {json.dumps(deploy)}", flush=True)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    if failed("phase 13"):
         return 1
 
     def cli_launches(kernel, *labels):

@@ -1,9 +1,10 @@
 """Minimal protobuf wire-format encode/decode helpers (no protobuf dependency).
 
 The port's copy of ``realtime_style_transfer_tpu/utils/proto.py``, used by
-the TensorBoard event writer (``tracing/tensorboard.py``): the events it
-writes are small, stable protos whose hand encoding saves a TensorFlow or
-protobuf dependency.
+the TensorBoard event writer (``tracing/tensorboard.py``) and the ONNX
+emitter and interpreter (``export/``): the protos they write are small and
+stable, and encoding them by hand saves a TensorFlow, protobuf or onnx
+dependency.
 """
 
 from __future__ import annotations

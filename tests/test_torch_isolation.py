@@ -1,14 +1,15 @@
 """The port stays clean of JAX: importing every module of
 ``realtime_style_transfer_torch`` and ``chip_smoke`` loads none of ``jax``,
-``flax``, ``optax``, ``orbax`` or ``realtime_style_transfer_tpu``.  The imports run in a
-fresh interpreter, because this test process has JAX loaded already."""
+``flax``, ``optax``, ``orbax``, ``realtime_style_transfer_tpu`` or ``pandas`` (the
+chip machine has none).  The imports run in a fresh interpreter, because this
+test process has JAX loaded already."""
 
 import subprocess
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "realtime_style_transfer_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "realtime_style_transfer_tpu", "pandas")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -37,4 +38,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert "realtime_style_transfer_torch.models.backbones.efficientnet" in report["modules"]
     for name in ("distributed", "mesh", "train", "infer"):
         assert f"realtime_style_transfer_torch.parallel.{name}" in report["modules"]
+    for name in ("export.onnx", "export.onnx_numpy", "save_using_checkpoint",
+                 "predict_using_saved_models", "compute_permutation_feature_importance"):
+        assert f"realtime_style_transfer_torch.{name}" in report["modules"]
     assert report["loaded"] == []
