@@ -47,6 +47,25 @@
 // the write-back of the previous launch's outputs; the grid barrier, the fold
 // and the stores, which go to L2, leave memory idle (halo_profile.py splits a
 // block's time into these phases).
+//
+// Split mode (MODE SUMS, then MODE APPLY), for a frame whose rows are sharded
+// over the ranks of a spatial group: a grid barrier cannot span ranks, so each
+// pass is two launches with an all-reduce of the (B, 2, C) sums over the group
+// between them, the shape of the TPU kernel's two pallas_calls.
+//   forward sums    per (b, c) the unscaled f32 [sum x, sum x^2] over this
+//                   launch's rows, in the one-launch kernel's order (items,
+//                   then a grid barrier, then the parts added in order).
+//   forward apply   from the group's sums and the group's pixel count n:
+//                   mean = S / n, meansq = Q / n (a product with 1/n, as the
+//                   one launch scales), the same fold, out = T(f32(x) * s + t)
+//                   and the moments into stats.
+//   backward sums   per (b, c) [sum g, sum g (x - mean)] over this launch's
+//                   rows, from the forward's moments.
+//   backward apply  dx from the group's sums, the fold of the one launch.
+// Neither keeps rows in shared memory (pix_sm 0): the forward reads x twice
+// and writes out once, the backward reads x and g twice and writes dx once.
+// The sums launch is cooperative (its barrier is within the launch); the
+// apply launch is a plain grid of the same blocks and items.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +81,9 @@ constexpr int NT = 512;             // threads a block
 constexpr int NW = NT / 32;
 constexpr int SMEM_CAP = 232448;    // the H100's shared memory a block (opt-in)
 constexpr int AUX_FLOATS = 6;       // f32 a channel ahead of the rows: sums [2], coefficients [4]
+// what a launch does: the one-launch kernel, or the two launches of the split
+// mode (see the header)
+constexpr int ONE = 0, SUMS = 1, APPLY = 2;
 
 // V elements of T as one load: 16 bytes, or one element where C is not a
 // multiple of V
@@ -133,12 +155,16 @@ struct Params {
   int parts;              // items of an image
   int ppb;                // rows an item: ceil(HW / parts)
   int pix_sm;             // rows a block keeps in shared memory, its items' in turn
+  // split mode
+  float* sums_out;        // SUMS: (B, 2, C) this launch's rows' sums
+  const float* sums_in;   // APPLY: (B, 2, C) the group's sums
+  int n_total;            // APPLY: the group's pixels an image
 };
 
 // grid: blocks, all resident (cooperative launch); block k takes items k,
 // k + gridDim.x, ... of the B * parts.  Dynamic shared memory: aux_bytes(C),
 // then pix_sm rows of x (backward: then pix_sm rows of g), a row C * sizeof(T).
-template <typename T, int V, bool BWD>
+template <typename T, int V, bool BWD, int MODE>
 __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
   using R = Raw<T, V>;
   constexpr int U = BWD ? 4 : 8;  // vectors a thread has in flight
@@ -158,7 +184,7 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
   const int items = p.b * p.parts;
 
   // ---- 1, 2. load each item's rows, keep them, add the sums ------------
-  for (int j = 0, item = blockIdx.x; item < items; ++j, item += gridDim.x) {
+  for (int j = 0, item = blockIdx.x; MODE != APPLY && item < items; ++j, item += gridDim.x) {
     const int b = item / p.parts, r0 = (item % p.parts) * p.ppb;
     const int nrows = max(0, min(p.ppb, p.hw - r0));
     const int n = active && lane < nrows ? (nrows - lane + lanes - 1) / lanes : 0;
@@ -236,7 +262,7 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
     for (int c = tid; c < 2 * p.c; c += NT) p.partials[(size_t)item * 2 * p.c + c] = acc[c];
     // PROFILE LAP 0
   }
-  cg::this_grid().sync();  // every item's partial is written
+  if constexpr (MODE != APPLY) cg::this_grid().sync();  // every item's partial is written
   // PROFILE LAP 1
 
   // ---- 3, 4. each item's coefficients from its image's partials; outputs ---
@@ -246,7 +272,7 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
       const float* pp = p.partials + (size_t)b * p.parts * 2 * p.c + c;
       float S = 0.f, Q = 0.f;
       int k = 0;
-      for (; k + 16 <= p.parts; k += 16) {  // sixteen parts in flight, added in order
+      for (; MODE != APPLY && k + 16 <= p.parts; k += 16) {  // sixteen parts in flight, in order
         float a[16], e[16];
 #pragma unroll
         for (int u = 0; u < 16; ++u) {
@@ -259,11 +285,22 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
           Q = __fadd_rn(Q, e[u]);
         }
       }
-      for (; k < p.parts; ++k) {
+      for (; MODE != APPLY && k < p.parts; ++k) {
         S = __fadd_rn(S, __ldcg(pp + (size_t)k * 2 * p.c));
         Q = __fadd_rn(Q, __ldcg(pp + (size_t)k * 2 * p.c + p.c));
       }
       const size_t row = (size_t)b * p.c + c, st = (size_t)b * 2 * p.c + c;
+      if constexpr (MODE == APPLY) {  // the group's sums, not this launch's partials
+        S = p.sums_in[st];
+        Q = p.sums_in[st + p.c];
+      }
+      if constexpr (MODE == SUMS) {
+        if (part == 0) {
+          p.sums_out[st] = S;
+          p.sums_out[st + p.c] = Q;
+        }
+        continue;
+      }
       if constexpr (!BWD) {
         const float mu = __fmul_rn(S, p.inv_n), musq = __fmul_rn(Q, p.inv_n);
         const float inv = rsqrtf(__fadd_rn(__fsub_rn(musq, __fmul_rn(mu, mu)), p.eps));
@@ -282,12 +319,13 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
         coef[p.c + c] = __fmul_rn(S, p.inv_n);                             // mean of g
         coef[2 * p.c + c] = __fmul_rn(inv, __fmul_rn(dscale, p.inv_n));    // inv * mean(g xhat)
         coef[3 * p.c + c] = mu;
-        if (part == 0) {
+        if (MODE == ONE && part == 0) {
           p.dbias[row] = S;
           p.dscale[row] = dscale;
         }
       }
     }
+    if constexpr (MODE == SUMS) continue;  // a sums launch writes no outputs
     __syncthreads();
     // PROFILE LAP 2
     float k0[V], k1[V], k2[V], k3[V];
@@ -348,18 +386,19 @@ __global__ void __launch_bounds__(NT, 1) cin_kernel(const Params p) {
   }
 }
 
-template <typename T, int V, bool BWD>
+template <typename T, int V, bool BWD, int MODE>
 cudaError_t launch(Params p, int blocks, cudaStream_t s) {
   if (p.b < 1 || p.hw < 1 || p.c < 1 || p.c % V || p.c / V > NT || p.parts < 1 ||
-      p.parts > p.hw || blocks < 1 || blocks > p.b * p.parts || p.pix_sm < 0)
+      p.parts > p.hw || blocks < 1 || blocks > p.b * p.parts || p.pix_sm < 0 ||
+      (MODE != ONE && p.pix_sm != 0) || (MODE == APPLY && p.n_total < p.hw))
     return cudaErrorInvalidValue;
   p.ppb = (p.hw + p.parts - 1) / p.parts;
   const int per_block = (p.b * p.parts + blocks - 1) / blocks;
   const size_t smem = aux_bytes(p.c) + (size_t)p.pix_sm * p.c * sizeof(T) * (BWD ? 2 : 1);
   if ((long long)p.pix_sm > (long long)per_block * p.ppb || smem > SMEM_CAP)
     return cudaErrorInvalidValue;
-  p.inv_n = 1.0f / (float)p.hw;
-  auto kernel = cin_kernel<T, V, BWD>;
+  p.inv_n = 1.0f / (float)(MODE == APPLY ? p.n_total : p.hw);
+  auto kernel = cin_kernel<T, V, BWD, MODE>;
   static bool configured = false;  // the attribute once per instantiation
   if (!configured) {
     const cudaError_t err =
@@ -376,20 +415,20 @@ cudaError_t launch(Params p, int blocks, cudaStream_t s) {
   attr[0].id = cudaLaunchAttributeCooperative;  // all blocks resident: the grid barrier
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = MODE == APPLY ? 0 : 1;  // an apply launch has no barrier
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <bool BWD>
+template <bool BWD, int MODE = ONE>
 int dispatch(const Params& p, int bf16, int blocks, cudaStream_t s) {
   cudaError_t err;
   if (bf16)
-    err = p.c % 8 == 0 ? launch<__nv_bfloat16, 8, BWD>(p, blocks, s)
-                       : launch<__nv_bfloat16, 1, BWD>(p, blocks, s);
+    err = p.c % 8 == 0 ? launch<__nv_bfloat16, 8, BWD, MODE>(p, blocks, s)
+                       : launch<__nv_bfloat16, 1, BWD, MODE>(p, blocks, s);
   else
-    err = p.c % 4 == 0 ? launch<float, 4, BWD>(p, blocks, s)
-                       : launch<float, 1, BWD>(p, blocks, s);
+    err = p.c % 4 == 0 ? launch<float, 4, BWD, MODE>(p, blocks, s)
+                       : launch<float, 1, BWD, MODE>(p, blocks, s);
   return static_cast<int>(err);
 }
 
@@ -446,4 +485,79 @@ extern "C" int rst_cin_backward(const void* x, const void* g, int bf16, const vo
   p.parts = parts;
   p.pix_sm = pix_sm;
   return dispatch<true>(p, bf16, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// The split mode (see the header).  Sums launches: x (and g) as above; sums
+// (B, 2, C) f32, this launch's rows' [sum x, sum x^2] (backward: [sum g,
+// sum g (x - mean)] from the forward's moments `stats`); partials at least
+// B * parts * 2 * C floats.  Apply launches: sums the group's, n the group's
+// pixels an image; the forward writes out and stats (B, 2, C) [mean, mean of
+// squares], the backward dx.  No rows are kept in shared memory.
+extern "C" int rst_cin_forward_sums(const void* x, int bf16, void* sums, void* partials, int B,
+                                    int HW, int C, int parts, int blocks, void* stream) {
+  Params p = {};
+  p.x = x;
+  p.sums_out = static_cast<float*>(sums);
+  p.partials = static_cast<float*>(partials);
+  p.b = B;
+  p.hw = HW;
+  p.c = C;
+  p.parts = parts;
+  return dispatch<false, SUMS>(p, bf16, blocks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rst_cin_forward_apply(const void* x, int bf16, const void* sums, int n,
+                                     const void* scale, const void* bias, float eps, void* out,
+                                     void* stats, int B, int HW, int C, int parts, int blocks,
+                                     void* stream) {
+  Params p = {};
+  p.x = x;
+  p.sums_in = static_cast<const float*>(sums);
+  p.n_total = n;
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.stats_out = static_cast<float*>(stats);
+  p.eps = eps;
+  p.b = B;
+  p.hw = HW;
+  p.c = C;
+  p.parts = parts;
+  return dispatch<false, APPLY>(p, bf16, blocks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rst_cin_backward_sums(const void* x, const void* g, int bf16, const void* stats,
+                                     void* sums, void* partials, int B, int HW, int C,
+                                     int parts, int blocks, void* stream) {
+  Params p = {};
+  p.x = x;
+  p.g = g;
+  p.stats_in = static_cast<const float*>(stats);
+  p.sums_out = static_cast<float*>(sums);
+  p.partials = static_cast<float*>(partials);
+  p.b = B;
+  p.hw = HW;
+  p.c = C;
+  p.parts = parts;
+  return dispatch<true, SUMS>(p, bf16, blocks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rst_cin_backward_apply(const void* x, const void* g, int bf16, const void* stats,
+                                      const void* sums, int n, const void* scale, float eps,
+                                      void* dx, int B, int HW, int C, int parts, int blocks,
+                                      void* stream) {
+  Params p = {};
+  p.x = x;
+  p.g = g;
+  p.stats_in = static_cast<const float*>(stats);
+  p.sums_in = static_cast<const float*>(sums);
+  p.n_total = n;
+  p.scale = static_cast<const float*>(scale);
+  p.out = dx;
+  p.eps = eps;
+  p.b = B;
+  p.hw = HW;
+  p.c = C;
+  p.parts = parts;
+  return dispatch<true, APPLY>(p, bf16, blocks, static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,8 @@ folded into the batch axis so the predictor runs once for all of them.
 
 Each takes ``train`` (batch statistics in the batch norms, as the training
 step runs them); ``dtype`` and ``use_pallas`` are the JAX model's fields.
+``rows`` runs the transfer net on a rank's rows of the frame (see
+:mod:`.transfer`); the predictor runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -58,14 +60,16 @@ class StyleTransferInference(nn.Module):
 
     def stylize(self, content: torch.Tensor, style_params: torch.Tensor,
                 style_weights: Optional[torch.Tensor] = None, *, train: bool = False,
-                plain: bool = False) -> torch.Tensor:
-        return self.transfer(content, style_params, style_weights, train=train, plain=plain)
+                plain: bool = False, rows=None) -> torch.Tensor:
+        return self.transfer(content, style_params, style_weights, train=train, plain=plain,
+                             rows=rows)
 
     def forward(self, content: torch.Tensor, style: torch.Tensor,
                 style_weights: Optional[torch.Tensor] = None, *, train: bool = False,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, rows=None) -> torch.Tensor:
         style_params = self.predict_style_params(style, train=train)
-        return self.stylize(content, style_params, style_weights, train=train, plain=plain)
+        return self.stylize(content, style_params, style_weights, train=train, plain=plain,
+                            rows=rows)
 
 
 def make_inference_model(config: ShapeConfig, *,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -60,10 +60,12 @@ class Conv(nn.Module):
         else:
             init(self.weight, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: ``x`` is this rank's rows of a frame sharded along H
+        (:class:`..parallel.spatial.RowShard`)."""
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return conv2d_same(x, self.weight.to(x.dtype), bias, stride=self.stride,
-                           groups=self.groups)
+                           groups=self.groups, rows=rows)
 
 
 class ConvTranspose(nn.Module):
@@ -83,26 +85,28 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         init(self.weight, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         if self.stride == 2:
-            return (conv_transpose_2x(x, w) + self.bias).to(x.dtype)
-        return conv2d_same(x, w.permute(3, 2, 0, 1), self.bias.to(x.dtype))
+            return (conv_transpose_2x(x, w, rows) + self.bias).to(x.dtype)
+        return conv2d_same(x, w.permute(3, 2, 0, 1), self.bias.to(x.dtype), rows=rows)
 
 
 # the cross-replica reduction of train-mode batch moments (see batch_moments_reduced)
-_MOMENTS_REDUCE: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, int]]] = None
+Reduce = Callable[[torch.Tensor, int], Tuple[torch.Tensor, Union[int, torch.Tensor]]]
+_MOMENTS_REDUCE: Optional[Reduce] = None
 
 
 @contextlib.contextmanager
-def batch_moments_reduced(reduce: Callable[[torch.Tensor], Tuple[torch.Tensor, int]]
-                          ) -> Iterator[None]:
+def batch_moments_reduced(reduce: Reduce) -> Iterator[None]:
     """Inside the block, a train-mode :class:`BatchNorm` forms its moments
-    over the global batch: ``reduce(sums)`` takes the (2, C) per-channel f32
-    sums of x and x^2 of this replica's batch and returns the sums over all
-    replicas (differentiably) and the number of replicas, which hold batches
-    of one size.  A data-parallel step runs its forward and backward inside,
-    so that each replica normalizes as one device would on the whole batch."""
+    over the global batch: ``reduce(sums, count)`` takes the (2, C)
+    per-channel f32 sums of x and x^2 over this replica's ``count``
+    elements a channel and returns the sums over all replicas
+    (differentiably) and the global element count (all-reduced with them
+    where the replicas hold uneven row shards, a spatial axis).  A
+    parallel step runs its forward and backward inside, so that each replica
+    normalizes as one device would on the whole batch."""
     global _MOMENTS_REDUCE
     previous, _MOMENTS_REDUCE = _MOMENTS_REDUCE, reduce
     try:
@@ -137,16 +141,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.batch_update = None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, rows=None) -> torch.Tensor:
+        """``rows``: ``x`` is this rank's rows of a frame sharded along H; the
+        batch moments are then the frame's (over the rank's spatial group,
+        or over :func:`batch_moments_reduced`'s replicas when set)."""
         if train:
             xf = x.float()
-            if _MOMENTS_REDUCE is None:
+            reduce = _MOMENTS_REDUCE or (None if rows is None else rows.reduce_moments)
+            if reduce is None:
                 mean = torch.mean(xf, dim=(0, 1, 2))
                 mean2 = torch.mean(xf * xf, dim=(0, 1, 2))
             else:
-                sums, replicas = _MOMENTS_REDUCE(
-                    torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]))
-                mean, mean2 = sums / (xf[..., 0].numel() * replicas)
+                sums, count = reduce(
+                    torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]),
+                    xf[..., 0].numel())
+                mean, mean2 = sums / count
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():

@@ -19,6 +19,8 @@ norm statistics live in the state and reach the module through
   kernel (:mod:`..ops.cin`); ``plain=True`` on a step runs the kernel's plain
   version in its place (the oracle on the card).
 * Entry points run on CUDA unless ``device="cpu"``.
+* ``rows`` on a step runs the transfer net on this rank's rows of each frame
+  (``parallel.spatial``); the loss towers then see the gathered frame.
 """
 
 from __future__ import annotations
@@ -137,12 +139,12 @@ class StyleTransferTrainingModel:
                 {k: self._tensor(v) for k, v in ground_truth.items()})
 
     def _forward(self, params: Tensors, batch_stats: Tensors, inputs: Tensors, *,
-                 train: bool, plain: bool) -> Tuple[torch.Tensor, Tensors]:
+                 train: bool, plain: bool, rows=None) -> Tuple[torch.Tensor, Tensors]:
         """The prediction, and the batch norm statistics after the forward."""
 
         def forward(variables, content, style, style_weights):
             return functional_call(self.model, variables, (content, style, style_weights),
-                                   {"train": train, "plain": plain})
+                                   {"train": train, "plain": plain, "rows": rows})
 
         args = ({**params, **batch_stats}, inputs["content"], inputs["style"],
                 inputs.get("style_weights"))
@@ -160,20 +162,20 @@ class StyleTransferTrainingModel:
         return prediction, new_stats
 
     def loss_and_metrics(self, params: Tensors, batch_stats: Tensors, batch, *, train: bool,
-                         plain: bool = False):
+                         plain: bool = False, rows=None):
         """(mean loss, (per-sample loss components, batch norm statistics))."""
         inputs, ground_truth = self._batch(batch)
         prediction, new_stats = self._forward(params, batch_stats, inputs, train=train,
-                                              plain=plain)
+                                              plain=plain, rows=rows)
         losses = self.compute_loss(prediction, ground_truth)
         return torch.mean(losses["loss"]), (losses, new_stats)
 
-    def value_and_grad(self, state: TrainState, batch, *, plain: bool = False):
+    def value_and_grad(self, state: TrainState, batch, *, plain: bool = False, rows=None):
         """(mean loss, loss components, new batch statistics, gradients) of
         the training forward at ``state.params``."""
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         total, (losses, new_stats) = self.loss_and_metrics(
-            params, state.batch_stats, batch, train=True, plain=plain)
+            params, state.batch_stats, batch, train=True, plain=plain, rows=rows)
         names = list(params)
         grads = torch.autograd.grad(total, [params[k] for k in names], allow_unused=True,
                                     materialize_grads=True)
@@ -187,10 +189,11 @@ class StyleTransferTrainingModel:
         metrics = {name: torch.mean(v.detach()) for name, v in losses.items()}
         return TrainState(state.step + 1, params, new_stats, opt_state), metrics
 
-    def eval_step(self, state: TrainState, batch, *, plain: bool = False) -> Tensors:
+    def eval_step(self, state: TrainState, batch, *, plain: bool = False,
+                  rows=None) -> Tensors:
         with torch.no_grad():
             _, (losses, _) = self.loss_and_metrics(state.params, state.batch_stats, batch,
-                                                   train=False, plain=plain)
+                                                   train=False, plain=plain, rows=rows)
         return {name: torch.mean(v) for name, v in losses.items()}
 
     # ---- inference passthrough ------------------------------------------------

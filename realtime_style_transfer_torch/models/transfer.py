@@ -19,6 +19,13 @@ kernel path in :mod:`..ops.fused_transfer`.
 ``use_pallas`` sends each single-style CIN of 64 channels or more to the CUDA
 kernel of :mod:`..ops.cin`, as the JAX net's ``use_pallas`` sends it to
 ``cin_pallas``.
+
+``rows`` (a :class:`..parallel.spatial.RowShard`) runs the net on this rank's
+rows of the frame, sharded along H over the rank's spatial group: the content
+and the weight map are cut to those rows, each conv exchanges its halo rows
+with the neighbouring ranks, each CIN and train-mode batch norm takes the
+frame's moments, and the output is gathered along H, so every rank of the
+group returns the whole frame.
 """
 
 from __future__ import annotations
@@ -172,14 +179,18 @@ class StyleTransferNet(nn.Module):
 
     def forward(self, content: torch.Tensor, style_params: torch.Tensor,
                 style_weights: Optional[torch.Tensor] = None, *, train: bool = False,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, rows=None) -> torch.Tensor:
         """``plain`` runs the CIN kernel's plain version where ``use_pallas``
-        would launch it (the oracle on the card)."""
+        would launch it (the oracle on the card); ``rows`` shards the frame's
+        rows over a spatial group (see the module docstring)."""
         plan = self.plan
         if style_params.shape[-1] != plan.num_style_parameters:
             raise ValueError(
                 f"style_params last dim {style_params.shape[-1]} != plan "
                 f"{plan.num_style_parameters}")
+        if rows is not None:
+            content = rows.take(content)
+            style_weights = None if style_weights is None else rows.take(style_weights)
         mips = None
         if self.num_styles > 1:
             if style_weights is None:
@@ -189,9 +200,10 @@ class StyleTransferNet(nn.Module):
 
         x = content.to(self.dtype)
         for bi in range(len(plan.contract_schedule)):
-            x = torch.relu(getattr(self, f"contract_{bi}_conv")(x))
-            x = torch.relu(getattr(self, f"contract_{bi}_bn")(x, train))
-        cin_kw = dict(epsilon=self.cin_epsilon, use_pallas=self.use_pallas, plain=plain)
+            x = torch.relu(getattr(self, f"contract_{bi}_conv")(x, rows))
+            x = torch.relu(getattr(self, f"contract_{bi}_bn")(x, train, rows))
+        cin_kw = dict(epsilon=self.cin_epsilon, use_pallas=self.use_pallas, plain=plain,
+                      rows=rows)
 
         # (B, S, P) -> (B, 1, S, P)
         cursor = StyleParamCursor(style_params[:, None, :, :].float())
@@ -203,7 +215,7 @@ class StyleTransferNet(nn.Module):
             block_weights = pick_mip(x.shape[-2])
             fx = x
             for ci in range(2):
-                fx = torch.relu(getattr(self, f"residual_{ri}_conv{ci}")(fx))
+                fx = torch.relu(getattr(self, f"residual_{ri}_conv{ci}")(fx, rows))
                 fx = cin_from_cursor(fx, cursor, block_weights, **cin_kw)
                 if ci == 0:
                     fx = torch.relu(fx)
@@ -212,9 +224,9 @@ class StyleTransferNet(nn.Module):
         num_blocks = len(plan.expand_blocks)
         for ei, (_f, _k, stride) in enumerate(plan.expand_blocks):
             block_weights = pick_mip(x.shape[-2] * stride)
-            x = getattr(self, f"expand_{ei}_conv")(x)
+            x = getattr(self, f"expand_{ei}_conv")(x, rows)
             x = cin_from_cursor(x, cursor, block_weights, **cin_kw)
             x = torch.sigmoid(x) if ei == num_blocks - 1 else torch.relu(x)
 
         cursor.assert_consumed()
-        return x.float()
+        return x.float() if rows is None else rows.gather(x.float())

@@ -144,12 +144,29 @@ def cin_work(b: int, h: int, w: int, c: int, itemsize: int) -> Dict[str, Tuple[f
     dbias written.  Operations: an add, a square and an add a value for the
     moments, a multiply and an add for the affine; the backward's sums take
     a subtract, a multiply and two adds, dx three subtracts and two
-    multiplies."""
+    multiplies.
+
+    The split mode (a frame's rows over a spatial group) is two launches a
+    pass, each its own function: ``forward_sums`` reads x and writes the
+    (B, 2, C) sums; ``forward_apply`` reads x, the sums, the scale and bias
+    rows and writes the output and the moments; ``backward_sums`` reads x, g
+    and the moments and writes the sums; ``backward_apply`` reads x, g, the
+    moments, the sums and the scale row and writes dx.  ``split_forward`` and
+    ``split_backward`` are each pass's two launches: x read twice and the
+    output written once; x and g read twice and dx written once."""
     n = b * h * w * c
     moments, row = 8 * b * c, 4 * b * c   # (B, 2, C) f32; one (B, C) f32 row
-    return {"function": (5.0 * n, 2.0 * n * itemsize + 2 * row),
-            "forward": (5.0 * n, 2.0 * n * itemsize + 2 * row + moments),
-            "backward": (9.0 * n, 3.0 * n * itemsize + moments + 3 * row)}
+    out = {"function": (5.0 * n, 2.0 * n * itemsize + 2 * row),
+           "forward": (5.0 * n, 2.0 * n * itemsize + 2 * row + moments),
+           "backward": (9.0 * n, 3.0 * n * itemsize + moments + 3 * row),
+           "forward_sums": (3.0 * n, n * itemsize + moments),
+           "forward_apply": (2.0 * n, 2.0 * n * itemsize + 2 * moments + 2 * row),
+           "backward_sums": (4.0 * n, 2.0 * n * itemsize + 2 * moments),
+           "backward_apply": (5.0 * n, 3.0 * n * itemsize + 2 * moments + row)}
+    for name in ("forward", "backward"):
+        sums, apply = out[f"{name}_sums"], out[f"{name}_apply"]
+        out[f"split_{name}"] = (sums[0] + apply[0], sums[1] + apply[1])
+    return out
 
 
 def conv_matmul_launches(plan: TransferPlan) -> Dict[str, Tuple[int, ...]]:
@@ -332,6 +349,13 @@ def table() -> Dict[str, Tuple[float, str, str]]:
     ops_bw, bytes_bw = slice_work["backward"]
     rows["2' train, backward"] = bound_ms(ops_bw, bytes_bw, "f32") + (
         f"its gradient, one launch: x and g read, dx written, {bytes_bw / 1e6:.1f} MB",)
+    half = cin_work(4, hb // 2, wb, fb, 2)   # a rank's rows on a 2-rank spatial axis
+    for name in ("forward", "backward"):
+        ops_h, bytes_h = half[f"split_{name}"]
+        rows[f"2{chr(39) if name == 'backward' else ''} spatial, {name}"] = bound_ms(
+            ops_h, bytes_h, "f32") + (
+            f"cin.cu's split {name} (sums, then apply) on a rank's (4, {hb // 2}, {wb}, {fb}) "
+            f"bf16 rows of a 2-rank spatial axis, {bytes_h / 1e6:.1f} MB",)
     for label, plan in (("rst-960", flagship), ("rst-1920", divider1)):
         for seam, shape in conv_matmul_launches(plan).items():
             ops_m, bytes_m = conv_matmul_work(*shape)

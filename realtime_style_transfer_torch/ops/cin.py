@@ -34,6 +34,23 @@ The two differ only in the order of the f32 sums.
 channels it takes the plain ``conditional_instance_norm``, and its backward
 recomputes the moments in torch ops.
 
+The split mode, for a frame whose rows are sharded over the ranks of a
+spatial group (:func:`cin_split`; ``parallel/spatial.py``): a grid barrier
+cannot span ranks, so each pass is two launches of the same kernel with an
+all-reduce of the (B, 2, C) f32 sums over the group between them, the shape
+of the TPU kernel's ``_stats_kernel`` and ``_normalize_kernel``:
+:func:`cin_forward_sums` (the unscaled ``[sum x, sum x^2]`` of this rank's
+rows), :func:`cin_forward_apply` (the moments from the group's sums and the
+group's pixel count, the one launch's fold and output),
+:func:`cin_backward_sums` (``[sum g, sum g (x - mean)]`` from the forward's
+moments) and :func:`cin_backward_apply` (``dx`` from the group's sums).
+Each rank's ``dscale`` and ``dbias`` are its own rows' share, so that the
+sum of the group's parameter gradients is the gradient.  Below
+:data:`MIN_CHANNELS` the same split runs in torch ops
+(``normalization.conditional_instance_norm(..., rows=...)``).  Neither launch
+keeps rows in shared memory: the forward reads x twice and writes the output
+once, the backward reads x and g twice and writes dx once.
+
 Each wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
 version (:func:`cin_forward_plain`, :func:`cin_backward_plain`, same rounding
 points of the folded coefficients), a CUDA tensor launches the kernel or
@@ -113,6 +130,51 @@ def cin_forward_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """:func:`cin_forward` in torch ops: (output, moments)."""
     stats = cin_stats_plain(x)
     return cin_normalize_plain(x, stats, scale, bias, eps), stats
+
+
+def cin_forward_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, 2, C) f32: the unscaled sums of x and x^2 over
+    H x W in f32."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))], dim=1)
+
+
+def cin_forward_apply_plain(x: torch.Tensor, sums: torch.Tensor, n: int, scale: torch.Tensor,
+                            bias: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cin_forward_apply` in torch ops: (output, moments), the moments
+    the (B, 2, C) ``sums`` of ``n`` pixels an image each scaled by 1/n."""
+    stats = sums * (1.0 / float(n))
+    return cin_normalize_plain(x, stats, scale, bias, eps), stats
+
+
+def cin_backward_sums_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """(B, 2, C) f32: the sums of g and of g (x - mean) over H x W, the
+    mean from the forward's moments ``stats``."""
+    b, _, _, c = x.shape
+    gf = g.float()
+    mean = stats[:, 0].reshape(b, 1, 1, c)
+    return torch.stack([gf.sum(dim=(1, 2)), (gf * (x.float() - mean)).sum(dim=(1, 2))], dim=1)
+
+
+def cin_backward_apply_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                             sums: torch.Tensor, n: int, scale: torch.Tensor,
+                             eps: float) -> torch.Tensor:
+    """:func:`cin_backward_apply` in torch ops, in the kernel's fold:
+    ``dx = inv * scale * ((g - S / n) - (x - mean) * inv * (inv * Q) / n)``
+    from the group's sums ``[S, Q]`` of ``n`` pixels an image."""
+    b, _, _, c = x.shape
+    mean, meansq = stats[:, 0], stats[:, 1]
+    inv = torch.rsqrt((meansq - mean * mean) + eps)
+    inv_n = 1.0 / float(n)
+    k0 = inv * scale
+    k1 = sums[:, 0] * inv_n
+    k2 = inv * ((inv * sums[:, 1]) * inv_n)
+
+    def per(t):
+        return t.reshape(b, 1, 1, c)
+
+    dx = per(k0) * ((g.float() - per(k1)) - (x.float() - per(mean)) * per(k2))
+    return dx.to(x.dtype)
 
 
 def cin_backward_plain(x: torch.Tensor, g: torch.Tensor, stats: Optional[torch.Tensor],
@@ -248,6 +310,98 @@ def cin_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: t
 cin_backward.launches = 0
 
 
+def _split_plan(x: torch.Tensor) -> CinPlan:
+    """The items and blocks of :func:`_launch_plan` with no rows kept in
+    shared memory: a split launch streams its rows."""
+    c = x.shape[-1]
+    return _launch_plan(x, False)._replace(pix_sm=0, smem_bytes=-(-AUX_FLOATS * 4 * c // 16) * 16)
+
+
+def _launched(fn, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
+    fn.launches += 1
+
+
+def cin_forward_sums(x: torch.Tensor) -> torch.Tensor:
+    """The split mode's forward sums: (B, 2, C) f32 ``[sum x, sum x^2]``
+    over this tensor's H x W, unscaled, in the kernel's fixed order."""
+    if not _on_cuda(x, "cin_forward_sums"):
+        return cin_forward_sums_plain(x)
+    b, h, w, c = x.shape
+    plan = _split_plan(x)
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    partials = torch.empty(b * plan.parts * 2 * c, dtype=torch.float32, device=x.device)
+    _launched(cin_forward_sums, _lib("cin.cu").rst_cin_forward_sums(
+        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(sums), _ptr(partials), b, h * w, c,
+        plan.parts, plan.blocks, _stream(x)))
+    return sums
+
+
+def cin_forward_apply(x: torch.Tensor, sums: torch.Tensor, n: int, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split mode's forward apply: from the group's (B, 2, C) f32
+    ``sums`` of ``n`` pixels an image and the (B, C) f32 ``scale`` and
+    ``bias``, (the output, the (B, 2, C) f32 moments)."""
+    if not _on_cuda(x, "cin_forward_apply"):
+        return cin_forward_apply_plain(x, sums, n, scale, bias, eps)
+    b, h, w, c = x.shape
+    f32 = torch.float32
+    for t, name in ((sums, "sums"), (scale, "scale"), (bias, "bias")):
+        _check(t, f"cin_forward_apply {name}", f32, (b, 2, c) if name == "sums" else (b, c),
+               x.device)
+    plan = _split_plan(x)
+    out = torch.empty_like(x)
+    stats = torch.empty((b, 2, c), dtype=f32, device=x.device)
+    _launched(cin_forward_apply, _lib("cin.cu").rst_cin_forward_apply(
+        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(sums), int(n), _ptr(scale), _ptr(bias),
+        float(eps), _ptr(out), _ptr(stats), b, h * w, c, plan.parts, plan.blocks, _stream(x)))
+    return out, stats
+
+
+def cin_backward_sums(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """The split mode's backward sums: (B, 2, C) f32 ``[sum g, sum g (x -
+    mean)]`` over this tensor's H x W, from the forward's moments."""
+    if not _on_cuda(x, "cin_backward_sums"):
+        return cin_backward_sums_plain(x, g, stats)
+    b, h, w, c = x.shape
+    f32 = torch.float32
+    _check(g, "cin_backward_sums g", x.dtype, x.shape, x.device)
+    _check(stats, "cin_backward_sums stats", f32, (b, 2, c), x.device)
+    plan = _split_plan(x)
+    sums = torch.empty((b, 2, c), dtype=f32, device=x.device)
+    partials = torch.empty(b * plan.parts * 2 * c, dtype=f32, device=x.device)
+    _launched(cin_backward_sums, _lib("cin.cu").rst_cin_backward_sums(
+        _ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(stats), _ptr(sums),
+        _ptr(partials), b, h * w, c, plan.parts, plan.blocks, _stream(x)))
+    return sums
+
+
+def cin_backward_apply(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, sums: torch.Tensor,
+                       n: int, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The split mode's backward apply: ``dx`` of ``x``'s dtype from the
+    forward's moments and the group's (B, 2, C) f32 backward ``sums`` of
+    ``n`` pixels an image."""
+    if not _on_cuda(x, "cin_backward_apply"):
+        return cin_backward_apply_plain(x, g, stats, sums, n, scale, eps)
+    b, h, w, c = x.shape
+    f32 = torch.float32
+    _check(g, "cin_backward_apply g", x.dtype, x.shape, x.device)
+    for t, name in ((stats, "stats"), (sums, "sums"), (scale, "scale")):
+        _check(t, f"cin_backward_apply {name}", f32, (b, c) if name == "scale" else (b, 2, c),
+               x.device)
+    plan = _split_plan(x)
+    dx = torch.empty_like(x)
+    _launched(cin_backward_apply, _lib("cin.cu").rst_cin_backward_apply(
+        _ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(stats), _ptr(sums), int(n),
+        _ptr(scale), float(eps), _ptr(dx), b, h * w, c, plan.parts, plan.blocks, _stream(x)))
+    return dx
+
+
+for _fn in (cin_forward_sums, cin_forward_apply, cin_backward_sums, cin_backward_apply):
+    _fn.launches = 0
+
+
 def _rows(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
     """A broadcastable (B, 1, 1, C)-like scale or bias as a (B, C) f32 row."""
     return t.reshape(b, c).float().contiguous()
@@ -294,6 +448,54 @@ def cin_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _Cin.apply(x, scale, bias, float(epsilon), True)
 
 
+class _CinSplit(torch.autograd.Function):
+    """CIN of this rank's rows of a frame sharded over ``rows``' group: the
+    split launches with the group's all-reduce between them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, plain, rows):
+        b, h, w, c = x.shape
+        x = x.contiguous()
+        ctx.eps, ctx.plain, ctx.rows = eps, plain, rows
+        ctx.n = rows.pixels(h, w)
+        ctx.bias_like = (bias.shape, bias.dtype)
+        sums = (cin_forward_sums_plain if plain else cin_forward_sums)(x)
+        rows.all_reduce_(sums)
+        out, stats = (cin_forward_apply_plain if plain else cin_forward_apply)(
+            x, sums, ctx.n, _rows(scale, b, c), _rows(bias, b, c), eps)
+        ctx.save_for_backward(x, scale, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, stats = ctx.saved_tensors
+        b, _, _, c = x.shape
+        g = g.contiguous()
+        sums = (cin_backward_sums_plain if ctx.plain else cin_backward_sums)(x, g, stats)
+        # this rank's share of dscale and dbias, before the sums are the group's
+        inv = torch.rsqrt((stats[:, 1] - stats[:, 0] * stats[:, 0]) + ctx.eps)
+        dscale, dbias = inv * sums[:, 1], sums[:, 0].clone()
+        ctx.rows.all_reduce_(sums)
+        dx = (cin_backward_apply_plain if ctx.plain else cin_backward_apply)(
+            x, g, stats, sums, ctx.n, _rows(scale, b, c), ctx.eps)
+        shape, dtype = ctx.bias_like
+        return (dx, dscale.reshape(scale.shape).to(scale.dtype), dbias.reshape(shape).to(dtype),
+                None, None, None)
+
+
+def cin_split(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, rows,
+              epsilon: float = CIN_EPS, plain: bool = False) -> torch.Tensor:
+    """:func:`cin` of this rank's rows of a frame whose rows are sharded over
+    ``rows`` (a :class:`..parallel.spatial.RowShard`), the moments over the
+    whole frame: the split launches (their plain versions with ``plain``)
+    with an all-reduce of the sums over the group between them.  Below
+    :data:`MIN_CHANNELS` the plain CIN's split in torch ops."""
+    if x.shape[-1] < MIN_CHANNELS:
+        return conditional_instance_norm(x, scale, bias, epsilon=epsilon, rows=rows)
+    return _CinSplit.apply(x, scale, bias, float(epsilon), plain, rows)
+
+
 def reset_launch_counts() -> None:
-    cin_forward.launches = 0
-    cin_backward.launches = 0
+    for fn in (cin_forward, cin_backward, cin_forward_sums, cin_forward_apply,
+               cin_backward_sums, cin_backward_apply):
+        fn.launches = 0

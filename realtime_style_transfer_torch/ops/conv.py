@@ -16,6 +16,13 @@ exactly as the JAX package does; for odd k, with ``pad_lo = k//2 + 1`` the
 input-dilated conv reads cell ``2i + d - pad_lo + t`` for tap t and only even
 cells hit real pixels, so parity class d uses taps ``t = (pad_lo - d) mod 2``
 stepping by 2.
+
+``rows`` (a :class:`..parallel.spatial.RowShard`) says that ``x`` is this
+rank's rows of a frame sharded along H: the rows a conv's window reaches
+above and below them come from the neighbouring ranks
+(:meth:`~..parallel.spatial.RowShard.halo`), and zero rows pad only the
+frame's top and bottom.  For the stride-2 transpose conv of an odd kernel
+the parity-packed kernel reads the row above each input row and none below.
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias=None, *,
-                stride: int = 1, groups: int = 1) -> torch.Tensor:
+                stride: int = 1, groups: int = 1, rows=None) -> torch.Tensor:
     """``SAME`` conv of NHWC ``x`` with an OIHW ``weight`` -> NHWC."""
     kh, kw = weight.shape[2:]
-    py = same_pads(x.shape[1], kh, stride)
     px = same_pads(x.shape[2], kw, stride)
+    if rows is None:
+        py = same_pads(x.shape[1], kh, stride)
+    else:
+        x, py = rows.halo_same(x, kh, stride), (0, 0)
     x = F.pad(x.permute(0, 3, 1, 2), (px[0], px[1], py[0], py[1]))
     return F.conv2d(x, weight, bias, stride=stride, groups=groups).permute(0, 2, 3, 1)
 
@@ -98,7 +108,7 @@ def depth_to_space_2x(y: torch.Tensor, cout: int) -> torch.Tensor:
     return y.reshape(b, 2 * h, 2 * w, cout)
 
 
-def conv_transpose_2x(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def conv_transpose_2x(x: torch.Tensor, kernel: torch.Tensor, rows=None) -> torch.Tensor:
     """Stride-2 ``SAME`` transpose conv: NHWC ``x``, HWIO ``kernel`` -> NHWC.
 
     Equals ``lax.conv_transpose(x, kernel, (2, 2), 'SAME',
@@ -107,6 +117,8 @@ def conv_transpose_2x(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     b, h, w, _ = x.shape
     cout = kernel.shape[3]
     packed, (pad_y, pad_x) = pack_transpose_kernel(kernel)
+    if rows is not None:
+        x, pad_y = rows.halo(x, *pad_y), (0, 0)
     xp = F.pad(x.permute(0, 3, 1, 2), (pad_x[0], pad_x[1], pad_y[0], pad_y[1]))
     y = F.conv2d(xp, packed.permute(3, 2, 0, 1))
     y = y[:, :, :h, :w].permute(0, 2, 3, 1)

@@ -103,6 +103,10 @@ _ARGTYPES = {
     "rst_probe_smem": [_I] * 4 + [_P] * 5,
     "rst_cin_forward": [_P, _I, _P, _P, _F] + [_P] * 4 + [_I] * 6 + [_P],
     "rst_cin_backward": [_P, _P, _I, _P, _P, _F] + [_P] * 5 + [_I] * 6 + [_P],
+    "rst_cin_forward_sums": [_P, _I, _P, _P] + [_I] * 5 + [_P],
+    "rst_cin_forward_apply": [_P, _I, _P, _I, _P, _P, _F, _P, _P] + [_I] * 5 + [_P],
+    "rst_cin_backward_sums": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    "rst_cin_backward_apply": [_P, _P, _I, _P, _P, _I, _P, _F, _P] + [_I] * 5 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -13,7 +13,7 @@ import datetime
 import logging
 import os
 import socket
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -61,6 +61,46 @@ def initialize(coordinator_address: Optional[str] = None,
                             **kwargs)
     log.info("process group initialized: rank %d / %d (%s)", dist.get_rank(),
              dist.get_world_size(), dist.get_backend())
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over a group by ``reduce_`` (an in-place sum over the group);
+    its gradient is the sum of the ranks' gradients (each rank's output feeds
+    that rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, t, reduce_):
+        ctx.reduce_ = reduce_
+        out = t.clone(memory_format=torch.contiguous_format)
+        reduce_(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        ctx.reduce_(grad)
+        return grad, None
+
+
+def sum_autograd(t: torch.Tensor, reduce_: Callable[[torch.Tensor], object]) -> torch.Tensor:
+    """The sum of ``t`` over a group, ``reduce_`` summing a tensor over it in
+    place, as a new tensor whose gradient is the sum of the ranks' gradients."""
+    return _Sum.apply(t, reduce_)
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, in place (and returned)."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_reduce_moments(sums: torch.Tensor, count: int, reduce_: Callable[[torch.Tensor], object]):
+    """A train-mode batch norm's (2, C) sums over this rank's ``count``
+    elements a channel -> (the group's sums, the group's count), in one
+    differentiable sum by ``reduce_`` (see :func:`sum_autograd`)."""
+    flat = torch.cat([sums.reshape(-1), sums.new_tensor([float(count)])])
+    flat = sum_autograd(flat, reduce_)
+    return flat[:-1].reshape(sums.shape), flat[-1]
 
 
 def process_index() -> int:

@@ -1,14 +1,19 @@
-"""Data-parallel inference: frames over the ranks of the data mesh.
+"""Inference over the mesh: frames over the data axis, rows over the spatial axis.
 
-Port of ``realtime_style_transfer_tpu/parallel/infer.py`` on the data axis.
-Each rank holds the whole model (or engine) and the prepared style, rank 0's
-by a broadcast; a step stylizes one frame a rank with no collective on the
-frame path, and the outputs are gathered in rank order, so that rank 0 (and
-every rank) gets the step's frames for the caller.
+Port of ``realtime_style_transfer_tpu/parallel/infer.py``.  Each rank holds
+the whole model (or engine) and the prepared style, rank 0's by a broadcast;
+the outputs are gathered in rank order, so that rank 0 (and every rank) gets
+the step's frames for the caller.
 
 * :class:`DistributedStylizer`: the eager inference net's ``stylize`` and
-  ``predict_style_params`` on the mesh.
-* :class:`FusedStreamStylizer`: the production stream.  The per-rank program
+  ``predict_style_params`` on the mesh.  The batch is sharded over the data
+  axis; with a spatial axis each rank of a spatial group runs the transfer
+  net on its rows of its frames (the content's and the weight map's,
+  :mod:`.spatial`), the frames are gathered along H in the group and then
+  along the batch in the data group.  ``predict_style_params`` runs
+  replicated.
+* :class:`FusedStreamStylizer`: the production stream, on the data axis
+  only (it refuses a spatial axis, as JAX's does).  The per-rank program
   is :class:`..ops.fused_transfer.FusedTransfer` (the ``conv_stage`` and
   ``finish`` kernels) where the plan qualifies, else
   :class:`..models.transfer_packed.PackedTransfer`; ``path="auto"`` picks by
@@ -25,7 +30,7 @@ import torch
 from ..models.inference import StyleTransferInference
 from ..models.transfer import TransferPlan
 from ..weights import from_flax
-from .mesh import DATA_AXIS, Mesh, replicate
+from .mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, frame_rows, replicate
 
 
 def _rank_slice(x: Optional[torch.Tensor], mesh: Mesh) -> Optional[torch.Tensor]:
@@ -51,6 +56,7 @@ class DistributedStylizer:
         if variables is not None:
             self.model.load_state_dict(from_flax(variables, expected=self.model), strict=True)
         mesh.broadcast_module_(self.model)
+        self.rows = frame_rows(mesh, self.model.plan)
 
     def predict_style_params(self, style_images) -> torch.Tensor:
         with torch.no_grad():
@@ -60,15 +66,16 @@ class DistributedStylizer:
 
     def stylize(self, content, style_params, style_weights=None) -> torch.Tensor:
         """content (B, H, W, C), B divisible by the data-axis size, and style
-        params (B, S, P) or (1, S, P); each rank stylizes its slice, and every
-        rank gets the (B, H, W, 3) result."""
+        params (B, S, P) or (1, S, P); each rank stylizes its slice (its rows
+        of it on a spatial axis), and every rank gets the (B, H, W, 3)
+        result."""
         params = torch.as_tensor(style_params)
         if params.shape[0] == content.shape[0]:
             params = _rank_slice(params, self.mesh)   # a style vector a frame
         params = params.to(self.mesh.device)
         with torch.no_grad():
             out = self.model.stylize(_rank_slice(content, self.mesh), params,
-                                     _rank_slice(style_weights, self.mesh))
+                                     _rank_slice(style_weights, self.mesh), rows=self.rows)
         return self.mesh.all_gather(out.float())
 
     @property
@@ -92,6 +99,9 @@ class FusedStreamStylizer:
 
         if quant is not None and path != "fused":
             raise ValueError("quant engines exist only on the fused path; pass path='fused'")
+        if mesh.shape[SPATIAL_AXIS] != 1:
+            raise ValueError("FusedStreamStylizer shards whole frames over the data axis; "
+                             "build the mesh with spatial=1")
         if path not in ("auto", "fused", "packed"):
             raise ValueError(f"path must be 'auto', 'fused' or 'packed', got {path!r}")
         self.mesh = mesh

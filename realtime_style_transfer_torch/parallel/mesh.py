@@ -1,16 +1,18 @@
-"""The data mesh: one rank a device in a ``torch.distributed`` group.
+"""The ``(data, spatial)`` mesh: one rank a device in a ``torch.distributed`` group.
 
 Port of ``realtime_style_transfer_tpu/parallel/mesh.py``.  The JAX mesh is
-``(data, spatial)`` over one process's devices, and GSPMD inserts its
-collectives; the port's :class:`Mesh` wraps the data group instead: its size,
-this rank, this rank's device (``cuda:<local rank>``, or the CPU when the
-caller asks, with gloo) and ``shape == {"data": n, "spatial": 1}``.
-Parameters are replicated by a broadcast from rank 0 and a batch is sharded
-by giving each rank its slice of the leading axis; the steps that need a
-collective make it themselves (:mod:`.train`, :mod:`.infer`).
-
-``spatial > 1`` (H sharded over devices, with a halo exchange around every
-conv) is not ported: ROADMAP.md Queue 1 item 4b.
+the devices reshaped to ``(n // spatial, spatial)``, and GSPMD inserts its
+collectives; the port's :class:`Mesh` lays the ranks out on the same grid,
+rank ``r`` at data index ``r // spatial`` and spatial index ``r % spatial``,
+and holds this rank's groups: its data group (the ranks of its spatial
+index, over which a batch is sharded) and its spatial group (the ranks of
+its data index, over which a frame's rows are sharded, :mod:`.spatial`).
+Every rank creates every group, in the same order.  Parameters are
+replicated by a broadcast from rank 0 over the whole mesh, a batch is
+sharded by giving each data index its slice of the leading axis, and
+:meth:`Mesh.rows` gives a rank its rows of a frame (the twin of
+``activation_spec``); the steps that need a collective make it themselves
+(:mod:`.train`, :mod:`.infer`).
 """
 
 from __future__ import annotations
@@ -23,67 +25,48 @@ import torch.distributed as dist
 
 from ..data.pipeline import _tree_map
 from . import distributed
+from .spatial import RowShard, row_split
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
-SPATIAL_REFUSAL = ("the spatial mesh axis (H sharded over devices) is not ported; it is "
-                   "ROADMAP.md Queue 1 item 4b: build the mesh with spatial=1")
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """The sum over the group; its gradient is the sum of the ranks'
-    gradients (each rank's output feeds that rank's loss)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
-        return grad, None
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data group of ``size`` ranks; this process is ``rank`` on
-    ``device``.  ``group`` is None for a mesh of one process without a
-    process group, where every collective is the identity."""
+    """This process on ``device``: data index ``rank`` of ``size`` in the data
+    group ``group``, spatial index ``spatial_rank`` of ``spatial`` in the
+    spatial group ``spatial_group`` (None when ``spatial`` is 1), and
+    ``world``, the group of the whole mesh.  ``group`` and ``world`` are None
+    for a mesh of one process without a process group, where every
+    collective is the identity."""
 
     size: int
     rank: int
     device: torch.device
     group: Optional[Any] = None
+    spatial: int = 1
+    spatial_rank: int = 0
+    spatial_group: Optional[Any] = None
+    world: Optional[Any] = None
 
     @property
     def shape(self):
-        return {DATA_AXIS: self.size, SPATIAL_AXIS: 1}
+        return {DATA_AXIS: self.size, SPATIAL_AXIS: self.spatial}
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.rank == 0 and self.spatial_rank == 0
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks, in place (and returned)."""
+        """The sum of ``t`` over the data group, in place (and returned)."""
         if self.group is not None:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
-    def all_reduce_sum_autograd(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks as a new tensor whose gradient is
-        the sum of the ranks' gradients."""
-        if self.group is None:
-            return t
-        return _AllReduceSum.apply(t, self.group)
-
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` on every rank, in place (and returned)."""
-        if self.group is not None:
-            dist.broadcast(t, src=dist.get_global_rank(self.group, 0), group=self.group)
+        """Rank 0's ``t`` on every rank of the mesh, in place (and returned)."""
+        if self.world is not None:
+            dist.broadcast(t, src=dist.get_global_rank(self.world, 0), group=self.world)
         return t
 
     def broadcast_module_(self, module: torch.nn.Module) -> None:
@@ -93,20 +76,30 @@ class Mesh:
                 self.broadcast_(t.data)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``t`` (one shape on every rank) concatenated along the
-        leading axis in rank order."""
+        """The data group's ``t`` (one shape on every rank) concatenated along
+        the leading axis in rank order."""
         if self.group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts)
 
+    def rows(self, height: int, align: int) -> Optional[RowShard]:
+        """This rank's rows of an ``height``-row frame, the boundaries at
+        multiples of ``align`` (``2 ** contracts``, so that every stride-2
+        stage's shard is whole rows); None when the spatial axis is 1."""
+        if self.spatial == 1:
+            return None
+        return RowShard(self.spatial_group, self.spatial_rank,
+                        row_split(height, self.spatial, align))
+
 
 def make_mesh(n_devices: Optional[int] = None, *, spatial: int = 1, device=None) -> Mesh:
-    """The data mesh over the ranks of the process group (one process and no
-    group: a mesh of one).  ``n_devices`` must be the group's size; on CUDA
-    every rank needs a card of its own.  ``device="cpu"`` runs the ranks on
-    the CPU (a gloo group)."""
+    """The ``(n // spatial, spatial)`` mesh over the ranks of the process
+    group (one process and no group: a mesh of one).  ``n_devices`` must be
+    the group's size; on CUDA every rank needs a card of its own, unless
+    ``device`` names one (``"cuda:0"``), which every rank then shares.
+    ``device="cpu"`` runs the ranks on the CPU (a gloo group)."""
     world = distributed.process_count()
     n = world if n_devices is None else n_devices
     if n > world:
@@ -115,25 +108,50 @@ def make_mesh(n_devices: Optional[int] = None, *, spatial: int = 1, device=None)
             f"{n} ranks with torchrun, or call parallel.distributed.initialize in each)")
     if n < world:
         raise ValueError(f"requested a {n}-device mesh in a group of {world} ranks: "
-                         "the data mesh spans the whole group")
+                         "the mesh spans the whole group")
     if n % spatial != 0:
         raise ValueError(f"{n} devices not divisible by spatial={spatial}")
-    if spatial != 1:
-        raise NotImplementedError(SPATIAL_REFUSAL)
-    if device is not None and torch.device(device).type == "cpu":
-        dev = torch.device("cpu")
+    want = None if device is None else torch.device(device)
+    if want is not None and want.type == "cpu":
+        dev = want
     else:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-        local = distributed.local_rank()
-        if local >= torch.cuda.device_count():
-            raise ValueError(
-                f"requested a {n}-device mesh but only {torch.cuda.device_count()} "
-                "device(s) are visible to this machine's ranks")
-        dev = torch.device("cuda", local)
+        if want is not None and want.index is not None:
+            dev = want
+        else:
+            local = distributed.local_rank()
+            if local >= torch.cuda.device_count():
+                raise ValueError(
+                    f"requested a {n}-device mesh but only {torch.cuda.device_count()} "
+                    "device(s) are visible to this machine's ranks")
+            dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
-    group = dist.group.WORLD if dist.is_initialized() else None
-    return Mesh(n, distributed.process_index(), dev, group)
+    rank = distributed.process_index()
+    if not dist.is_initialized():
+        return Mesh(n, 0, dev)
+    if spatial == 1:
+        return Mesh(n, rank, dev, dist.group.WORLD, world=dist.group.WORLD)
+    n_data = n // spatial
+    data_group = spatial_group = None
+    # every rank makes every group, in one order: the data groups, then the spatial ones
+    for s in range(spatial):
+        g = dist.new_group([d * spatial + s for d in range(n_data)])
+        if rank % spatial == s:
+            data_group = g
+    for d in range(n_data):
+        g = dist.new_group([d * spatial + s for s in range(spatial)])
+        if rank // spatial == d:
+            spatial_group = g
+    return Mesh(n_data, rank // spatial, dev, data_group, spatial, rank % spatial,
+                spatial_group, dist.group.WORLD)
+
+
+def frame_rows(mesh: Mesh, plan) -> Optional[RowShard]:
+    """This rank's rows of the frames of the transfer net of ``plan`` (a
+    ``TransferPlan``): :meth:`Mesh.rows` at the input's height, aligned to
+    ``2 ** contracts``; None when the spatial axis is 1."""
+    return mesh.rows(plan.input_shape[0], 2 ** plan.num_contract_blocks)
 
 
 def replicate(tree, mesh: Mesh):
@@ -148,8 +166,8 @@ def replicate(tree, mesh: Mesh):
 
 
 def host_shard(batch, mesh: Mesh):
-    """This rank's slice of the leading axis of every array or tensor of the
-    global ``batch``, where it is (a view)."""
+    """This rank's slice (its data index's) of the leading axis of every array
+    or tensor of the global ``batch``, where it is (a view)."""
     def part(x):
         n = x.shape[0]
         per = n // mesh.size

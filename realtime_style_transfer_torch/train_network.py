@@ -15,12 +15,16 @@ Twin of the repository's ``train_network.py``: the same flags, plus
 
 The training model runs every CIN of 64 channels or more on the CUDA kernels
 (``use_pallas=True``: ``csrc/cin.cu``, forward and backward); with
-``--device cpu`` their plain versions run.  ``--mesh N`` trains
-data-parallel over N ranks, one a card (gloo ranks on the CPU with
-``--device cpu``), ``--batch_size`` being the global batch: launched under
-``torchrun --nproc_per_node N`` the command joins that group, otherwise it
-starts its N ranks itself on a free localhost port.  Rank 0 alone writes the
-run directory.  ``--mesh N,S`` with ``S > 1`` (the spatial axis) is refused.
+``--device cpu`` their plain versions run.  ``--mesh N[,S]`` trains over
+an N x S mesh of N * S ranks, one a card (gloo ranks on the CPU with
+``--device cpu``), as the JAX CLI builds ``make_mesh(N * S, spatial=S)``:
+the batch (``--batch_size`` being the global batch) over the N data ranks,
+each frame's rows over the S ranks of a spatial group (halo exchanges
+around each conv, the CIN and batch norm moments all-reduced; the CINs of
+64 channels or more in ``cin.cu``'s split mode, two launches a pass with an
+all-reduce between them).  Launched under ``torchrun --nproc_per_node
+N*S`` the command joins that group, otherwise it starts its ranks itself on
+a free localhost port.  Rank 0 alone writes the run directory.
 ``--profile`` writes a ``torch.profiler`` trace under ``<log_dir>/profile``,
 ``--debug_nans`` turns on autograd's anomaly detection, and
 ``--disable_jit`` has no effect: the port is eager.
@@ -32,7 +36,7 @@ import argparse
 import logging
 import os
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +79,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--seed", type=int, default=36)
     p.add_argument("--debug", action="store_true", help="100-image debug dataset")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh as data[,spatial]: data-parallel over that many "
-                        "ranks (spatial > 1 is not ported); default single device")
+                   help="device mesh as data[,spatial], e.g. '4,2': data * spatial ranks, "
+                        "the batch over data, each frame's rows over spatial; default "
+                        "single device")
     p.add_argument("--profile", action="store_true",
                    help="torch.profiler trace under <log_dir>/profile")
     p.add_argument("--debug_nans", action="store_true",
@@ -99,15 +104,11 @@ def _first_samples(make_iter):
         return
 
 
-def mesh_ranks(spec: str) -> int:
-    """The rank count of ``--mesh data[,spatial]``; a spatial axis is refused."""
-    from .parallel.mesh import SPATIAL_REFUSAL
-
+def mesh_ranks(spec: str) -> Tuple[int, int]:
+    """(the rank count, the spatial axis) of ``--mesh data[,spatial]``."""
     parts = [int(x) for x in spec.split(",")]
     spatial = parts[1] if len(parts) > 1 else 1
-    if spatial != 1:
-        raise NotImplementedError(SPATIAL_REFUSAL)
-    return parts[0]
+    return parts[0] * spatial, spatial
 
 
 def main(argv: Optional[Sequence[str]] = None, callbacks: Sequence = ()) -> Path:
@@ -116,7 +117,7 @@ def main(argv: Optional[Sequence[str]] = None, callbacks: Sequence = ()) -> Path
     args = parse_args(argv)
     resolve_device(args.device)
     log_dir = args.log_dir or cli.default_log_dir()
-    ranks = mesh_ranks(args.mesh) if args.mesh else None
+    ranks, spatial = mesh_ranks(args.mesh) if args.mesh else (None, 1)
     if ranks is None:
         _run(args, log_dir, callbacks)
         return log_dir
@@ -128,36 +129,38 @@ def main(argv: Optional[Sequence[str]] = None, callbacks: Sequence = ()) -> Path
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
         distributed.initialize(backend=backend)    # under torchrun
     if dist.is_initialized() or ranks == 1:
-        _run(args, log_dir, callbacks, ranks=ranks)
+        _run(args, log_dir, callbacks, ranks=ranks, spatial=spatial)
         return log_dir
     import torch.multiprocessing as mp
 
     address = f"tcp://127.0.0.1:{distributed.free_port()}"
-    mp.spawn(_spawned_rank, args=(args, log_dir, callbacks, ranks, address, backend),
+    mp.spawn(_spawned_rank, args=(args, log_dir, callbacks, ranks, spatial, address, backend),
              nprocs=ranks, join=True)
     return log_dir
 
 
 def _spawned_rank(rank: int, args, log_dir: Path, callbacks: Sequence, ranks: int,
-                  address: str, backend: str) -> None:
+                  spatial: int, address: str, backend: str) -> None:
     import torch.distributed as dist
 
     from .parallel import distributed
 
     distributed.initialize(address, ranks, rank, backend=backend)
     try:
-        _run(args, log_dir, callbacks, ranks=ranks)
+        _run(args, log_dir, callbacks, ranks=ranks, spatial=spatial)
     finally:
         dist.destroy_process_group()
 
 
-def _run(args, log_dir: Path, callbacks: Sequence, ranks: Optional[int] = None) -> None:
-    """Train in this process: alone, or as one rank of a ``ranks``-rank mesh."""
+def _run(args, log_dir: Path, callbacks: Sequence, ranks: Optional[int] = None,
+         spatial: int = 1) -> None:
+    """Train in this process: alone, or as one rank of a ``ranks``-rank mesh
+    with a ``spatial`` axis."""
     mesh = None
     if ranks is not None:
         from .parallel import make_mesh
 
-        mesh = make_mesh(ranks, device=args.device)
+        mesh = make_mesh(ranks, spatial=spatial, device=args.device)
     logsetup.setup()
     main_rank = mesh is None or mesh.is_main
     device = resolve_device(args.device) if mesh is None else mesh.device

@@ -331,7 +331,10 @@ def test_argtypes_follow_the_extern_c_signatures():
                                                     "rst_repack", "rst_conv_matmul",
                                                     "rst_conv_matmul_f32",
                                                     "rst_probe_smem", "rst_cin_forward",
-                                                    "rst_cin_backward"}
+                                                    "rst_cin_backward", "rst_cin_forward_sums",
+                                                    "rst_cin_forward_apply",
+                                                    "rst_cin_backward_sums",
+                                                    "rst_cin_backward_apply"}
     for name, types in found.items():
         assert kernels._ARGTYPES[name] == types, name
     assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",

@@ -1,12 +1,16 @@
-"""The port's data axis of ``parallel/`` against the JAX package on the CPU.
+"""The port's ``parallel/`` against the JAX package on the CPU: the data axis
+and the spatial axis.
 
 Two gloo ranks, each a subprocess on a free localhost port (killed with its
 process group if it outlives its timeout, as
 ``tests/test_distributed_multiprocess.py`` does), run the port's
-``DistributedTrainer``, ``DistributedStylizer`` and ``FusedStreamStylizer``;
-rank 0 writes what they give.  Meanwhile this process computes JAX's: its
-``DistributedTrainer`` on a 2-device data mesh (conftest gives JAX 8 CPU
-devices) from the port's initial state, and its ``DistributedStylizer`` and
+``DistributedTrainer``, ``DistributedStylizer`` and ``FusedStreamStylizer``
+on a data mesh, then ``DistributedTrainer`` and ``DistributedStylizer`` (one
+style and two with a weight map) on a ``data=1, spatial=2`` mesh, TINY's 60
+rows split 32 + 28; rank 0 writes what they give.  Meanwhile this process
+computes JAX's: its ``DistributedTrainer`` on a 2-device data mesh and on
+``make_mesh(2, spatial=2)`` (conftest gives JAX 8 CPU devices) from the
+port's initial state, and its ``DistributedStylizer`` (on both meshes) and
 packed-path ``FusedStreamStylizer`` in f32 on the same weights.  Then
 ``predict_video --data_parallel 2 --device cpu``, which starts its own two
 ranks, must write the frames of ``--data_parallel 1``, bf16 and int8.
@@ -16,8 +20,9 @@ Limits.  The training step: ``tests/test_torch_training.py``'s (metrics rtol
 f32 noise floor and within two RMSprop first-step updates, 6.4e-3, where it
 is not); the transfer net's contract batch norms run in train mode, so a
 rank normalizing by its own slice's moments would miss the batch statistics
-by far more.  The eager stylizer and the f32 packed stream: rtol 1e-4 + atol
-1e-5 x max.  The fused stream (the kernels' plain versions on the CPU, bf16)
+by far more (on the spatial axis, a rank's rows' moments: the batch norms'
+and the CINs').  The eager stylizer and the f32 packed stream: rtol 1e-4 +
+atol 1e-5 x max.  The fused stream (the kernels' plain versions on the CPU, bf16)
 against JAX's f32 packed stream: rtol 0.08 / atol 0.03, the port's
 fused-against-f32 limit; and bit-equal to the port's single-process
 ``FusedTransfer`` on the same frames.  The CLI: the same PNGs, bit for bit.
@@ -45,7 +50,6 @@ from realtime_style_transfer_torch.models.training import make_style_transfer_tr
 from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
 from realtime_style_transfer_torch.parallel import (batch_sharding, distributed, make_mesh,
                                                     replicate, replicated, shard_batch)
-from realtime_style_transfer_torch.parallel.mesh import SPATIAL_REFUSAL
 from realtime_style_transfer_torch.weights import state_to_flax, to_flax
 from realtime_style_transfer_tpu.config import ShapeConfig as JShapeConfig
 from realtime_style_transfer_tpu.models.inference import make_inference_model as jmake
@@ -64,6 +68,8 @@ TIMEOUT = 240
 TINY = dict(resolution_divider=16, bottleneck_res_y=15, bottleneck_num_filters=4,
             num_channels=3, hdr=False, feature_extractor="dummy", with_depth_loss=False)
 STREAM_SPEC = "rst-128-16-8-17"
+STREAM_REFUSAL = ("FusedStreamStylizer shards whole frames over the data axis; build the mesh "
+                  "with spatial=1")
 
 
 def train_batch(cfg, n=4, seed=0):
@@ -77,6 +83,17 @@ def stream_inputs(plan, seed=1):
     frames = rng.random((4,) + plan.input_shape, dtype=np.float32)
     params = (rng.random((1, 1, plan.num_style_parameters)) * 0.4 + 0.8).astype(np.float32)
     return frames, params
+
+
+def tiny_frames(seed=2):
+    """Two TINY frames, style vectors for one and two styles, a weight map."""
+    rng = np.random.default_rng(seed)
+    n_params = plan_from_config(ShapeConfig(**TINY)).num_style_parameters
+    out = {"tiny_content": rng.random((2, 60, 120, 3), dtype=np.float32),
+           "tiny_weights": rng.random((2, 60, 120, 1), dtype=np.float32)}
+    for s in (1, 2):
+        out[f"tiny_params{s}"] = (rng.random((2, s, n_params)) * 0.4 + 0.8).astype(np.float32)
+    return out
 
 
 # a rank: imports no JAX; its inputs come from the fixture's inputs.npz
@@ -105,12 +122,7 @@ distributed.initialize(address, 2, rank, backend="gloo")
 mesh = make_mesh(2, device="cpu")
 assert mesh.shape == {"data": 2, "spatial": 1} and mesh.rank == rank
 assert distributed.host_batch_slice(4) == slice(2 * rank, 2 * rank + 2)
-try:
-    make_mesh(2, spatial=2, device="cpu")
-    refused = ""
-except NotImplementedError as e:
-    refused = str(e)
-results = {"refused": np.array(refused)}
+results = {}
 
 cfg = ShapeConfig(**TINY)
 # each rank draws other weights: the trainer takes rank 0's state and towers
@@ -137,8 +149,33 @@ for path, dtype in (("fused", torch.bfloat16), ("packed", torch.float32)):
     if path == "fused":
         packed = stream.pack_frames_np(frames[:2])
         results["prepacked"] = stream.stylize_batch_prepacked(packed, prepared).numpy()
+
+# the spatial axis: one data index, TINY's rows over both ranks
+smesh = make_mesh(2, spatial=2, device="cpu")
+assert smesh.shape == {"data": 1, "spatial": 2} and (smesh.rank, smesh.spatial_rank) == (0, rank)
+results["bounds"] = np.array(smesh.rows(60, 4).bounds)
+try:
+    FusedStreamStylizer(variables, model.plan, smesh, path="fused")
+    results["stream_refused"] = np.array("")
+except ValueError as e:
+    results["stream_refused"] = np.array(str(e))
+tm = make_style_transfer_training_model(cfg, loss_extractor="dummy", device="cpu", seed=rank)
+trainer = DistributedTrainer(tm, smesh)
+state = trainer.init_state()
+state, metrics = trainer.train_step(state, trainer.shard_batch(batches[0]))
+results.update({f"spatial_metric/{k}": v.numpy() for k, v in metrics.items()})
+results["spatial_eval/loss"] = trainer.eval_step(
+    state, trainer.shard_batch(batches[1]))["loss"].numpy()
+spatial_tree = state_to_flax(state)
+for n_styles in (1, 2):
+    model = make_inference_model(ShapeConfig(**TINY, num_styles=n_styles), device="cpu", seed=0)
+    ds = DistributedStylizer(model, None, smesh)
+    results[f"spatial_stylizer{n_styles}"] = ds.stylize(
+        data["tiny_content"], data[f"tiny_params{n_styles}"],
+        data["tiny_weights"] if n_styles == 2 else None).numpy()
 if rank == 0:
     write_tree(out + "/state.npz", tree)
+    write_tree(out + "/spatial_state.npz", spatial_tree)
     np.savez(out + "/results.npz", **results)
 dist.destroy_process_group()
 print(f"rank {rank} ok", flush=True)
@@ -154,7 +191,7 @@ def run_ranks(tmp_path, n=2):
                                                                     repr(STREAM_SPEC)))
     batches = [train_batch(ShapeConfig(**TINY), seed=i)[0] for i in (0, 1)]
     frames, params = stream_inputs(plan_from_config(ShapeConfig.from_spec(STREAM_SPEC)))
-    np.savez(tmp_path / "inputs.npz", frames=frames, params=params,
+    np.savez(tmp_path / "inputs.npz", frames=frames, params=params, **tiny_frames(),
              **{f"{k}{i}": b[k] for i, b in enumerate(batches) for k in ("content", "style")})
     # gloo on the loopback interface, whatever this machine's hostname resolves to
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
@@ -208,6 +245,27 @@ def two_ranks(tmp_path_factory):
     ref["eval_loss"] = float(jtrainer.eval_step(js, jtrainer.shard_batch(
         train_batch(cfg, seed=1)))["loss"])
     ref["port"] = port
+    # the spatial axis: JAX's DistributedTrainer on make_mesh(2, spatial=2)
+    smesh = jmake_mesh(2, spatial=2)
+    strainer = JDistributedTrainer(jtm, smesh)
+    params = jax.tree.map(jnp.asarray, tree["params"])   # the first step donated its state
+    js = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                     batch_stats=jax.tree.map(jnp.asarray, tree["batch_stats"]),
+                     opt_state=jtm.optimizer.init(params))
+    js, metrics = strainer.train_step(js, strainer.shard_batch(train_batch(cfg)))
+    ref["spatial_state"] = jax.tree.map(np.asarray, js)
+    ref["spatial_metrics"] = {k: float(v) for k, v in metrics.items()}
+    ref["spatial_eval_loss"] = float(strainer.eval_step(js, strainer.shard_batch(
+        train_batch(cfg, seed=1)))["loss"])
+    tiny = tiny_frames()
+    for n_styles in (1, 2):
+        tmodel = make_inference_model(ShapeConfig(**TINY, num_styles=n_styles), device="cpu",
+                                      seed=0)
+        jm = jmake(JShapeConfig(**TINY, num_styles=n_styles))
+        ref[f"spatial_stylizer{n_styles}"] = np.asarray(JDistributedStylizer(
+            jm, to_flax(tmodel.state_dict()), smesh).stylize(
+            jnp.asarray(tiny["tiny_content"]), jnp.asarray(tiny[f"tiny_params{n_styles}"]),
+            jnp.asarray(tiny["tiny_weights"]) if n_styles == 2 else None))
     # the stream: JAX's stylizers on the port's seeded weights
     scfg = ShapeConfig.from_spec(STREAM_SPEC)
     model = make_inference_model(scfg, device="cpu", seed=0)
@@ -231,6 +289,7 @@ def two_ranks(tmp_path_factory):
 
     got = dict(np.load(tmp / "results.npz"))
     got["state"] = read_tree(tmp / "state.npz")
+    got["spatial_state"] = read_tree(tmp / "spatial_state.npz")
     return ref, got
 
 
@@ -261,9 +320,10 @@ def test_make_mesh_shapes_and_errors():
         make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="not divisible by spatial=2"):
         make_mesh(1, spatial=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        train_network.mesh_ranks("4,2")
-    assert train_network.mesh_ranks("4") == train_network.mesh_ranks("4,1") == 4
+    # --mesh N,S is N * S ranks, as the JAX CLI's make_mesh(N * S, spatial=S)
+    assert train_network.mesh_ranks("4,2") == (8, 2) and train_network.mesh_ranks("1,2") == (2, 2)
+    assert train_network.mesh_ranks("4") == train_network.mesh_ranks("4,1") == (4, 1)
+    assert mesh.rows(60, 4) is None and mesh.spatial_group is None and mesh.is_main
     # one process without a group: the mesh's collectives are the identity
     distributed.initialize(num_processes=1)
     assert distributed.host_batch_slice(4) == slice(0, 4)
@@ -276,17 +336,31 @@ def test_make_mesh_shapes_and_errors():
 
 
 def test_spatial_axis_is_refused_by_name(two_ranks):
+    """The spatial mesh is built (TINY's rows split 32 + 28 at multiples of
+    4); the frame stream alone refuses it, with JAX's message."""
     _, got = two_ranks
-    assert str(got["refused"]) == SPATIAL_REFUSAL and "Queue 1 item 4b" in SPATIAL_REFUSAL
+    assert got["bounds"].tolist() == [[0, 32], [32, 60]]
+    assert str(got["stream_refused"]) == STREAM_REFUSAL
 
 
 def test_distributed_train_step_matches_jax(two_ranks):
-    ref, got = two_ranks
-    port, want = ref["port"], ref["state"]
-    for key, value in ref["metrics"].items():
-        np.testing.assert_allclose(float(got[f"metric/{key}"]), value, rtol=1e-4, err_msg=key)
-    np.testing.assert_allclose(float(got["eval/loss"]), ref["eval_loss"], rtol=1e-4)
-    state = got["state"]
+    check_train_step(*two_ranks, "")
+
+
+def test_spatial_train_step_matches_jax(two_ranks):
+    """The data=1, spatial=2 step (TINY's rows 32 + 28: halo exchanges, the
+    CIN and batch norm moments over the group, the gathered frame's loss)
+    against JAX's DistributedTrainer on make_mesh(2, spatial=2)."""
+    check_train_step(*two_ranks, "spatial_")
+
+
+def check_train_step(ref, got, pre):
+    port, want = ref["port"], ref[f"{pre}state"]
+    for key, value in ref[f"{pre}metrics"].items():
+        np.testing.assert_allclose(float(got[f"{pre}metric/{key}"]), value, rtol=1e-4,
+                                   err_msg=key)
+    np.testing.assert_allclose(float(got[f"{pre}eval/loss"]), ref[f"{pre}eval_loss"], rtol=1e-4)
+    state = got[f"{pre}state"]
     assert int(state["step"]) == 1
     # the contract batch norms' statistics come from the global batch
     assert any("contract" in "/".join(p) for p, _ in _leaves(want.batch_stats))
@@ -306,6 +380,15 @@ def test_distributed_train_step_matches_jax(two_ranks):
 def test_distributed_stylizer_matches_jax(two_ranks):
     ref, got = two_ranks
     close(got["stylizer"], ref["stylizer"])
+
+
+@pytest.mark.parametrize("n_styles", [1, 2])
+def test_spatial_stylizer_matches_jax(two_ranks, n_styles):
+    """DistributedStylizer on the data=1, spatial=2 mesh (uneven rows, two
+    styles blended by a weight map cut to each rank's rows) against JAX's
+    on make_mesh(2, spatial=2)."""
+    ref, got = two_ranks
+    close(got[f"spatial_stylizer{n_styles}"], ref[f"spatial_stylizer{n_styles}"])
 
 
 def test_fused_stream_matches_jax_and_the_single_engine(two_ranks):

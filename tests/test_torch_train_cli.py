@@ -90,12 +90,20 @@ def test_continue_from_resumes_at_the_next_epoch(dataset, trained_run, tmp_path)
     assert "resuming" not in (trained_run / "log.txt").read_text()
 
 
+def test_mesh_with_a_spatial_axis_trains(dataset, tmp_path, monkeypatch):
+    """``--mesh 1,2``: the CLI starts two gloo ranks and splits each frame's
+    120 rows over them (64 + 56, at multiples of 8 for the 3 contracts)."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")   # the ranks' gloo on the loopback
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    run = train_network.main(_argv(dataset, tmp_path / "mesh", "--mesh", "1,2"))
+    assert "mesh: {'data': 1, 'spatial': 2}, this rank 0" in (run / "log.txt").read_text()
+    metrics = [json.loads(line) for line in (run / "metrics.jsonl").open()]
+    losses = [m["value"] for m in metrics if m["tag"] in ("training/loss", "validation/loss")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert (run / "weights" / "latest_epoch_weights.npz").is_file()
+
+
 def test_refusals(dataset, tmp_path, monkeypatch):
-    # the data axis is ported; the spatial axis is refused by name, before
-    # any rank starts or any file is written
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        train_network.main(_argv(dataset, tmp_path / "mesh", "--mesh", "4,2"))
-    assert not (tmp_path / "mesh").exists()
     # every JAX tower is a choice (the EfficientNet towers are ported)
     with pytest.raises(SystemExit):
         train_network.main(_argv(dataset, tmp_path / "effnet", "--loss", "efficientnet_b7"))
