@@ -114,24 +114,32 @@ Run from the repository root: ``python3 chip_smoke.py``.
    the bottleneck's shape, timed as the library yardstick of TPU kernel row 2.
 7. The packed path (``models/transfer_packed.py``) and its tap-matmul kernel
    ``conv_matmul`` (``csrc/conv_matmul.cu``).  The kernel against its plain
-   version at ``tests/test_pallas_conv.py``'s shapes, at the four launches of
-   the path (the packed stem, 5x5 68->128 with the contract epilogue, and the
-   packed final conv, 3x3 256->48 and 512->192, at rst-960 and rst-1920) in
-   bf16 with phase 2's limits, its weights packed once (``pack_taps``) as the
-   packed path packs them, and once in f32 at rtol 1e-4 + atol 1e-4 (the JAX
-   f32 tests' limit); two calls of each give the same bits, and each call
-   takes its path (``conv_valid_matmul.path_launches``: ``wgmma`` for bf16,
-   ``f32``); each launch timed beside its bound, the plain version and
-   ``F.conv2d`` on the same padded input, by CUDA events and as the replay of
-   a CUDA graph of 20 launches (``timing.graph_ms``), and the cost of packing
-   its weights.  Then 8 flagship frames, one
+   version at ``tests/test_pallas_conv.py``'s shapes and the 5x5 68->128
+   test shape, and at the four launches of the path (the packed stem, 5x5
+   68->128 with the contract epilogue, and the packed final conv, 3x3 256->48
+   and 512->192, at rst-960 and rst-1920), in bf16 (``conv_wgmma_kernel``)
+   with phase 2's limits and in f32 (``conv_fma_kernel``) at rtol 1e-4 +
+   atol 1e-4 (the JAX f32 tests' limit), its weights packed once
+   (``pack_taps``, ``pack_fma``) as the packed path packs them; two calls of
+   each give the same bits, and each call takes its path
+   (``conv_valid_matmul.path_launches``: ``wgmma`` for bf16, ``f32``); each
+   launch of the path timed, bf16 and f32, beside its bound, the plain
+   version and ``F.conv2d`` of its type (f32: TF32 off) on the same padded
+   input, by CUDA events and as the replay of a CUDA graph of 20 launches
+   (``timing.graph_ms``), and the cost of packing its weights.  Then 8
+   flagship frames, one
    style and two (the ramp map), through ``video.stylize_video`` on a
    ``PackedTransfer`` with ``conv_backend="pallas"``: 2 ``conv_matmul``
    launches a frame, all on the ``wgmma`` path, and none of the fused
    kernels; each frame held against the
    eager f32 net (rtol 0.08, atol 0.03), the packed path with the kernel's
    plain version and ``FusedTransfer``'s frame on the same weights (rtol 0.05,
-   atol 0.02, median < 5e-3).  Then rst-1920-120-128-17 with two styles:
+   atol 0.02, median < 5e-3).  One flagship frame through an f32
+   ``PackedTransfer`` with ``conv_backend="pallas"``: 2 launches on the
+   ``f32`` path, held against the same frame with the plain tap matmul
+   (rtol 1e-4 + atol 1e-4) and the eager f32 net (rtol 5e-3 + atol 5e-4,
+   the JAX f32 ``stylize_packed`` tests' limit), two calls bit-equal.  Then
+   rst-1920-120-128-17 with two styles:
    ``choose_path`` must give ``"packed"``, ``FusedTransfer`` must refuse the
    plan with the JAX message, and 8 frames go through ``stylize_video`` with
    the same checks (no fused frame exists to compare).  Frame times of the
@@ -2804,11 +2812,13 @@ def main() -> int:
     def check_conv_matmul(label, padded, k, cout, dtype=bf16, epilogue="none", timed=False):
         """conv_matmul on a seeded (Hp, Wp, Cin) image against its plain
         version, with its weights packed once as the packed path packs them
-        (bf16: Cin zero-padded to a multiple of 8; the wrapper pads the
-        image's channels to match, except in a timed case, which is handed
-        the image padded as the packed path pads it); two calls bit-equal;
-        its launches by path (bf16: wgmma); timed beside its bound, the plain
-        version and F.conv2d, by CUDA events and by graph replay."""
+        (bf16: pack_taps, Cin zero-padded to a multiple of 8; f32: pack_fma,
+        Cin zero-padded to whole chunks; the wrapper pads the image's
+        channels to match, except in a timed case, which is handed the image
+        padded as the packed path pads it); two calls bit-equal; its
+        launches by path (bf16: wgmma, f32: f32); timed beside its bound,
+        the plain version and F.conv2d of its type (f32: TF32 off), by CUDA
+        events and by graph replay."""
         cin = padded[2]
         x = torch.randn(padded, generator=gen, device=dev).to(dtype)
         w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
@@ -2816,8 +2826,8 @@ def main() -> int:
         epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
                    scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
                    shift=torch.randn(cout, generator=gen, device=dev) * 0.1, epilogue=epilogue)
-        kern = conv_matmul.pack_taps(w) if dtype == bf16 else w
-        xk = F.pad(x, (0, kern.kernel.shape[2] - cin)) if timed and dtype == bf16 else x
+        kern = (conv_matmul.pack_taps if dtype == bf16 else conv_matmul.pack_fma)(w)
+        xk = F.pad(x, (0, kern.kernel.shape[2] - cin)) if timed else x
         conv_matmul.reset_launch_counts()
         got = cmm(xk, kern, **epi)
         again = cmm(xk, kern, **epi)
@@ -2825,10 +2835,12 @@ def main() -> int:
         want = conv_matmul.conv_valid_matmul_plain(x, w, **epi)
         torch.cuda.synchronize()
         path = conv_matmul.path_of(dtype)
+        pl = kern.plan
         print(f"conv_matmul {label}: {tuple(padded)} x {k}x{k} -> {tuple(got.shape)} "
               f"{str(dtype)[6:]} epilogue={epilogue}"
-              + (f" (bn {kern.plan.bn}, rw {kern.plan.rw}, {kern.plan.nchunks} chunk(s), "
-                 f"K {kern.plan.k})" if dtype == bf16 else ""))
+              + (f" (bn {pl.bn}, rw {pl.rw}, {pl.nchunks} chunk(s), K {pl.k})" if dtype == bf16
+                 else f" (bn {pl.bn} x {pl.col_blocks}, tm {pl.tm}, cc {pl.cc}, {pl.stages} "
+                      f"stages, {pl.nbuf} buffers, window {pl.window})"))
         if dtype == bf16:
             err = close(f"conv_matmul {label}", got, want, 1.6e-2, 1e-2)
         else:
@@ -2851,33 +2863,40 @@ def main() -> int:
                        plain_ms=cuda_ms(lambda: conv_matmul.conv_valid_matmul_plain(x, w, **epi), 3),
                        library_ms=cuda_ms(lambda: F.conv2d(xp, wl), 20),
                        library_device_ms=graph_ms(lambda: F.conv2d(xp, wl)), bound=bound, by=by)
-            if dtype == bf16:
-                row["pack_ms"] = cuda_ms(lambda: conv_matmul.pack_taps(w), 3)
+            row["pack_ms"] = cuda_ms(lambda: (conv_matmul.pack_taps if dtype == bf16
+                                               else conv_matmul.pack_fma)(w), 3)
+            row["share"] = bound / row["device_ms"]
             note(f"conv_matmul {label}: kernel {row['ms']:.4f} ms (graph {row['device_ms']:.4f}; "
                  f"{ops / row['device_ms'] / 1e9:.1f} TFLOP/s, {bound / row['device_ms']:.1%} of "
                  f"the bound), plain {row['plain_ms']:.4f} ms, F.conv2d {str(dtype)[6:]} VALID "
                  f"{row['library_ms']:.4f} ms (graph {row['library_device_ms']:.4f}), bound "
                  f"{bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)"
-                 + (f"; packing the weights once {row['pack_ms']:.4f} ms" if "pack_ms" in row
-                    else ""))
+                 + f"; packing the weights once {row['pack_ms']:.4f} ms")
         return row
 
-    # tests/test_pallas_conv.py's shapes (padded input, k, cout) and its epilogue case
-    for label, padded, k, cout, epilogue in (
-            ("test (12, 20, 8) k5", (16, 24, 8), 5, 6, "none"),
-            ("test (16, 16, 4) k3", (18, 18, 4), 3, 6, "none"),
-            ("test (8, 24, 17) k9", (16, 32, 17), 9, 6, "none"),
-            ("test contract (10, 12, 4) k3", (10, 12, 4), 3, 6, "contract"),
-            ("test bias, cout 7", (14, 18, 5), 3, 7, "bias"),
-            ("1x1, Cin 20 (a lone plane on the zero pixels)", (19, 37, 20), 1, 16, "none")):
-        check_conv_matmul(label, padded, k, cout, epilogue=epilogue)
-    xs = torch.randn((2, 12, 16, 5), generator=gen, device=dev).to(bf16)
-    ws = (torch.randn((3, 3, 5, 7), generator=gen, device=dev) * 0.2).to(bf16)
-    got_same = conv_matmul.conv_same_batched(xs, ws)
-    xs_pad = F.pad(xs, (0, 0, 1, 1, 1, 1))
-    close("conv_same_batched (2, 12, 16, 5) k3 -> 7", got_same,
-          torch.stack([conv_matmul.conv_valid_matmul_plain(xs_pad[i], ws) for i in range(2)]),
-          1.6e-2, 1e-2)
+    # tests/test_pallas_conv.py's shapes (padded input, k, cout) and its epilogue case,
+    # bf16 then f32 (and the 5x5 68 -> 128 test shape of tests/test_torch_conv_matmul.py)
+    for dtype in (bf16, f32):
+        for label, padded, k, cout, epilogue in (
+                ("test (12, 20, 8) k5", (16, 24, 8), 5, 6, "none"),
+                ("test (16, 16, 4) k3", (18, 18, 4), 3, 6, "none"),
+                ("test (8, 24, 17) k9", (16, 32, 17), 9, 6, "none"),
+                ("test contract (10, 12, 4) k3", (10, 12, 4), 3, 6, "contract"),
+                ("test bias, cout 7", (14, 18, 5), 3, 7, "bias"),
+                ("1x1, Cin 20 (a lone plane on the zero pixels)", (19, 37, 20), 1, 16, "none"),
+                ("5x5, 68 -> 128 (the stem's geometry)", (16, 25, 68), 5, 128, "contract")):
+            check_conv_matmul(f"{label}, {str(dtype)[6:]}", padded, k, cout, dtype=dtype,
+                              epilogue=epilogue)
+        xs = torch.randn((2, 12, 16, 5), generator=gen, device=dev).to(dtype)
+        ws = (torch.randn((3, 3, 5, 7), generator=gen, device=dev) * 0.2).to(dtype)
+        got_same = conv_matmul.conv_same_batched(xs, ws)
+        xs_pad = F.pad(xs, (0, 0, 1, 1, 1, 1))
+        want_same = torch.stack([conv_matmul.conv_valid_matmul_plain(xs_pad[i], ws)
+                                 for i in range(2)])
+        if dtype == bf16:
+            close("conv_same_batched (2, 12, 16, 5) k3 -> 7", got_same, want_same, 1.6e-2, 1e-2)
+        else:
+            close_f32("conv_same_batched (2, 12, 16, 5) k3 -> 7, f32", got_same, want_same)
     launch_rows = {}
     for label, spec_plan in (("rst960", plan), ("rst1920", plan1)):
         for seam, shape in conv_matmul_launches(spec_plan).items():
@@ -2885,9 +2904,15 @@ def main() -> int:
             launch_rows[f"{label} {seam}"] = check_conv_matmul(
                 f"{label} packed {seam}", (hp, wp, cin), k, cout,
                 epilogue="contract" if seam == "stem" else "none", timed=True)
-    hp, wp, k, _, cin, cout = conv_matmul_launches(plan)["final"]
-    f32_row = check_conv_matmul("rst960 packed final, f32", (hp, wp, cin), k, cout,
-                                dtype=f32, timed=True)
+    # the f32 path at the four launches (the packed path in f32)
+    f32_rows = {}
+    for label, spec_plan in (("rst960", plan), ("rst1920", plan1)):
+        for seam, shape in conv_matmul_launches(spec_plan).items():
+            hp, wp, k, _, cin, cout = shape
+            f32_rows[f"{label} {seam}"] = check_conv_matmul(
+                f"{label} packed {seam}, f32", (hp, wp, cin), k, cout, dtype=f32,
+                epilogue="contract" if seam == "stem" else "none", timed=True)
+    f32_row = f32_rows["rst960 final"]
     if failed("phase 7, conv_matmul"):
         return 1
 
@@ -2964,6 +2989,42 @@ def main() -> int:
     errs_pd = check_packed_frames("packed dual", packed_engine2, model2.transfer, res_pd, frames2,
                                   sp_pd, ramp_t, fused2, fused2.prepare_style(sp_pd, ramp_t))
     if failed("phase 7, flagship packed frames"):
+        return 1
+
+    # the packed path in f32: one rst960 frame through PackedTransfer, its stem and final
+    # conv on conv_fma_kernel, against the plain tap matmul and the eager f32 net
+    packed_f32 = PackedTransfer(variables, plan, dtype=f32)
+    content_f = torch.from_numpy(frames[0])[None].to(dev)
+    with torch.no_grad():
+        conv_matmul.reset_launch_counts()
+        got_f = packed_f32(content_f, sp_ps, conv_backend="pallas")
+        torch.cuda.synchronize()
+        paths_f = dict(cmm.path_launches)
+        again_f = packed_f32(content_f, sp_ps, conv_backend="pallas")
+        plain_f = packed_f32(content_f, sp_ps, conv_backend="pallas", plain=True)
+        eager_f = model.transfer(content_f, sp_ps)
+        f32_frame_ms = cuda_ms(lambda: packed_f32(content_f, sp_ps, conv_backend="pallas"), 5)
+    torch.cuda.synchronize()
+    oh, ow, _ = plan.output_shape
+    shape_f = tuple(got_f.shape) == (1, oh, ow, 3) and bool(torch.isfinite(got_f).all())
+    e_plain, e_eager = (got_f - plain_f).abs(), (got_f - eager_f).abs()
+    ok_plain = bool((e_plain <= 1e-4 + 1e-4 * plain_f.abs()).all())
+    ok_eager = bool((e_eager <= 5e-4 + 5e-3 * eager_f.abs()).all())
+    same_f = torch.equal(got_f, again_f)
+    f32_frame = dict(launches=paths_f["f32"], path_launches=paths_f, ms=f32_frame_ms,
+                     err_plain=e_plain.max().item(), err_eager=e_eager.max().item())
+    print(f"packed f32 frame (PackedTransfer dtype f32, conv_backend 'pallas'): "
+          f"{tuple(got_f.shape)} finite {'ok' if shape_f else 'FAIL'}; launches by path {paths_f} "
+          f"(want 2 on f32) {'ok' if paths_f == {'wgmma': 0, 'f32': 2} else 'FAIL'}; vs the plain "
+          f"tap matmul max {f32_frame['err_plain']:.3e} (limit rtol 1e-4 + atol 1e-4) "
+          f"{'ok' if ok_plain else 'FAIL'}; vs the eager f32 net max {f32_frame['err_eager']:.3e} "
+          f"(limit rtol 5e-3 + atol 5e-4) {'ok' if ok_eager else 'FAIL'}; two calls bit-equal "
+          f"{'ok' if same_f else 'FAIL'}", flush=True)
+    note(f"frame, packed f32 (PackedTransfer dtype f32, conv_backend 'pallas', content in, "
+         f"(1, H, W, 3) f32 out): {f32_frame_ms:.4f} ms")
+    if not (shape_f and ok_plain and ok_eager and same_f and paths_f == {"wgmma": 0, "f32": 2}):
+        failures.append("packed f32 frame")
+    if failed("phase 7, packed f32 frame"):
         return 1
 
     print(f"phase 7, {SPEC_1920} with two styles: choose_path and the packed path", flush=True)
@@ -3535,6 +3596,13 @@ def main() -> int:
                 "pack_ms": {k: r["pack_ms"] for k, r in launch_rows.items()},
                 "f32_max_abs_err": f32_row["err"], "f32_ms": f32_row["ms"],
                 "f32_device_ms": f32_row["device_ms"],
+                "f32_library_ms": f32_row["library_ms"],
+                "f32_library_device_ms": f32_row["library_device_ms"],
+                "f32_bound_ms": {k: r["bound"] for k, r in f32_rows.items()},
+                "f32_launch_rows": f32_rows, "f32_frame": f32_frame,
+                "f32_note": "f32_* at the rst960 final; f32_launch_rows: the four launches of "
+                            "the packed path in f32 (conv_fma_kernel), each beside F.conv2d f32 "
+                            "with TF32 off; f32_frame: one rst960 PackedTransfer frame in f32",
                 "launch_rows": launch_rows, "frame_ms": frame_times,
                 "frame_profile": profiles,
                 "cli_launches": cli_launches("conv_matmul", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual"),

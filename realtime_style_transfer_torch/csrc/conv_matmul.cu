@@ -59,9 +59,43 @@
 // halo_profile.py, which turns each marker into a clock64 counter in a copy
 // of this file (written to Params::counters).
 //
-// f32 input runs an FMA kernel (conv_f32; one thread an output value,
-// per-tap partial sums added in tap order, as the plain version adds its
-// per-tap matmuls): no TF32 rounding, so it holds JAX's f32 tolerance.
+// f32 input runs conv_fma_kernel, an implicit GEMM on the CUDA cores (M the
+// output pixels, N Cout, K taps x Cin), f32 FMAs in a fixed order: no TF32
+// rounding, so it holds JAX's f32 tolerance, and no atomics.  Bound on the
+// H100: the f32 FMA rate (67 TFLOP/s; the rst-960 final is 6.4 GFLOP on 36
+// MB).  The block, eight consumer warps and a producer warp, owns
+// 16 output columns x TM / 2 rows x BN of Cout:
+//   warps   warp w owns TM consecutive pixels of one output row; its lane
+//           (g, ng) = (lane / NG, lane % NG) holds those TM pixels x the
+//           4 * TQ columns 4 * (ng + NG * q) + 0..3 in registers (TM x 4 TQ
+//           sums: 64 at the stem, 48 and 96 at the finals), and multiplies
+//           channel quads g, g + 32 / NG, ... of each chunk: the warp's
+//           32 / NG K-groups, summed by shuffles (a butterfly, the same bits
+//           in every lane) at the end.  The K-groups keep a lane's tile
+//           whole where Cout is narrow (the rst-960 final's 48) without
+//           starving the card of warps.
+//   A       a stage is one chunk of CC channels and one tap row ty: the
+//           input box (CC channels, 16 + kw - 1 columns, TM / 2 rows) by
+//           TMA (zero-filled outside the image), pixel-major in shared
+//           memory (the wrapper pads Cin to a multiple of CC); a lane reads
+//           its pixels' channel quad as float4, and the lanes of a warp
+//           read consecutive quads of one pixel at a time, so no bank
+//           conflicts.
+//   B       the weights, packed once (ops/conv_matmul.py pack_fma) in the
+//           stage order and, inside a stage, (tap, quad, channel, q, lane)
+//           order, so a warp's 32 float4 loads of B are 512 contiguous
+//           bytes; one TMA bulk copy a stage.
+//   loop    a lane reads its TM pixels' quad afresh for each tap, or, at
+//           the tiles and kw of ops/conv_matmul.py FMA_WINDOWS (the stem's
+//           5x5, the rst-960 final's 3x3), once a quad into a window of TM +
+//           kw - 1 pixels that the kw taps slide over.
+//   ring    up to FMA_MAX_BUF stages in shared memory, a full and an empty
+//           mbarrier each; the producer warp's lane 0 refills a stage once
+//           the eight consumer warps have released it.  Wide chunks (fewer
+//           stages) before more buffers: a stage costs a wait and a refill
+//           of the loop (measured: PERF.md).
+//   after   the sums of the K-groups, the epilogue, float4 stores.
+// "// PROFILE LAP i" marks the phases of conv_fma_kernel as well.
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,9 +191,11 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
       : "memory");
 }
 
-// One plane of an input chunk by TMA: the box (8 channels, tw columns, th
-// rows) at (channel 8 * plane, column x, row y) of the input's tensor map,
-// zero-filled outside the image, completing on bar.
+// One plane of an input chunk by TMA: the box at (plane, column x, row y)
+// of the input's 4-d tensor map (the bf16 path's: 8 channels of one plane,
+// tw columns, th rows; the f32 path's: the CC channels of one chunk, 16 +
+// kw - 1 columns, TM / 2 rows), zero-filled outside the image, completing
+// on bar.
 __device__ __forceinline__ void tma_plane(void* dst, const CUtensorMap* map, int plane, int x,
                                           int y, uint64_t* bar) {
   asm volatile(
@@ -594,28 +630,200 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
   // PROFILE LAP 4
 }
 
-// f32: one thread an output value; threadIdx.x walks 32 output channels (the
-// kernel's rows are contiguous in Cout), threadIdx.y 8 output pixels.
-__global__ void __launch_bounds__(256)
-    conv_f32(const float* __restrict__ x, const float* __restrict__ k,
-             const float* __restrict__ bias, const float* __restrict__ scale,
-             const float* __restrict__ shift, float* __restrict__ out, int hp, int wp, int cin,
-             int kh, int kw, int cout, int epi) {
-  const int h = hp - kh + 1, w = wp - kw + 1;
-  const int n = blockIdx.y * 32 + threadIdx.x;
-  const int p = blockIdx.x * 8 + threadIdx.y;
-  if (n >= cout || p >= h * w) return;
-  const int oy = p / w, ox = p - oy * w;
-  float acc = 0.f;
-  for (int ty = 0; ty < kh; ++ty)
-    for (int tx = 0; tx < kw; ++tx) {
-      const float* xp = x + ((size_t)(oy + ty) * wp + ox + tx) * cin;
-      const float* kp = k + (size_t)(ty * kw + tx) * cin * cout + n;
-      float part = 0.f;
-      for (int c = 0; c < cin; ++c) part = fmaf(xp[c], kp[(size_t)c * cout], part);
-      acc = __fadd_rn(acc, part);
+// ---- the f32 path: conv_fma_kernel ----
+constexpr int FMA_WARPS = 8;                       // consumer warps: TM pixels of a row each
+constexpr int FMA_THREADS = 32 * (FMA_WARPS + 1);  // ... and the producer warp
+constexpr int FMA_COLS = 16;                       // output columns of a block
+constexpr int FMA_MAX_BUF = 4;                     // stage buffers at most
+
+struct FmaParams {
+  const float* slices;  // the packed weights: [column block][nchunks * kh stages][kw * cc * BN]
+  const float* bias;    // (cout,), epi >= 1
+  const float* scale;   // (cout,), epi 2
+  const float* shift;   // (cout,), epi 2
+  float* out;           // (h, w, cout)
+  long long* counters;  // null; halo_profile.py's clock64 counters
+  int kh, kw, cout, h, w, epi;
+  int cc;       // channels a chunk; a stage is one chunk and one tap row
+  int nchunks;  // chunks of Cin
+  int nbuf;     // stage buffers, 2 .. FMA_MAX_BUF
+};
+
+// Bytes of a stage's input box (rows x (16 + kw - 1) pixels x cc channels)
+// and of its weight slice (kw taps x cc channels x bn columns), each padded
+// to 128 (the TMA boxes land 128-byte aligned).
+__host__ __device__ constexpr int fma_in_bytes(int rows, int kw, int cc) {
+  return (rows * (FMA_COLS + kw - 1) * cc * 4 + 127) / 128 * 128;
+}
+__host__ __device__ constexpr int fma_w_bytes(int bn, int kw, int cc) {
+  return (kw * cc * bn * 4 + 127) / 128 * 128;
+}
+
+// acc[j][q] += the channel quad a[j] of pixel j x the 4 x 4 TQ weights of
+// a lane at bp (channel kk, column quad q at (kk * TQ + q) * 128 floats):
+// one FMA a product, channels in order.
+template <int TM, int TQ>
+__device__ __forceinline__ void fma_quad(float4 (&acc)[TM][TQ], const float4* a, const float* bp) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < TQ; ++q) {
+      const float4 bv = *reinterpret_cast<const float4*>(bp + (kk * TQ + q) * 128);
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        const float av = kk == 0 ? a[j].x : kk == 1 ? a[j].y : kk == 2 ? a[j].z : a[j].w;
+        acc[j][q].x = fmaf(av, bv.x, acc[j][q].x);
+        acc[j][q].y = fmaf(av, bv.y, acc[j][q].y);
+        acc[j][q].z = fmaf(av, bv.z, acc[j][q].z);
+        acc[j][q].w = fmaf(av, bv.w, acc[j][q].w);
+      }
     }
-  out[(size_t)p * cout + n] = epilogue(acc, n, epi, bias, scale, shift);
+}
+
+// KW 0: any kw, each tap's TM pixels read anew; KW > 0: kw == KW, a
+// sliding window of TM + KW - 1 pixels read once for the KW taps.
+template <int TM, int TQ, int NG, int KW>
+__global__ void __launch_bounds__(FMA_THREADS, 1)
+    conv_fma_kernel(const FmaParams p, const __grid_constant__ CUtensorMap map) {
+  constexpr int KGW = 32 / NG;        // K-groups a warp
+  constexpr int BN = 4 * TQ * NG;     // output columns of a block
+  constexpr int R = TM / 2;           // output rows of a block
+  constexpr int WPR = FMA_COLS / TM;  // warps a row
+  static_assert(R * WPR == FMA_WARPS && (TM % KGW == 0 || KGW % TM == 0),
+                "eight warps of TM pixels; K-group g stores the pixels j with j % KGW == g");
+  __shared__ __align__(8) uint64_t full[FMA_MAX_BUF];   // stage s has landed in buffer s % nbuf
+  __shared__ __align__(8) uint64_t empty[FMA_MAX_BUF];  // the consumer warps are done with it
+  extern __shared__ __align__(128) unsigned char dyn[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_x = (p.w + FMA_COLS - 1) / FMA_COLS;
+  const int by = blockIdx.x / tiles_x;
+  const int oy0 = by * R, ox0 = (blockIdx.x - by * tiles_x) * FMA_COLS;
+  const int twc = FMA_COLS + p.kw - 1;
+  const int in_bytes = fma_in_bytes(R, p.kw, p.cc);
+  const int w_floats = p.kw * p.cc * BN;
+  const int stage_bytes = in_bytes + fma_w_bytes(BN, p.kw, p.cc);
+  const int nst = p.nchunks * p.kh;
+
+  if (tid == 0) {
+    for (int i = 0; i < FMA_MAX_BUF; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], FMA_WARPS);
+    }
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == FMA_WARPS) {
+    // the producer: stage s (chunk s / kh, tap row s % kh) into buffer
+    // s % nbuf once the consumers have released stage s - nbuf
+    if (lane == 0) {
+      const float* wsl = p.slices + (size_t)blockIdx.y * nst * w_floats;
+      for (int s = 0; s < nst; ++s) {
+        const int b = s % p.nbuf, c = s / p.kh;
+        unsigned char* st = dyn + b * stage_bytes;
+        mbar_wait(&empty[b], ((s / p.nbuf) & 1) ^ 1);
+        mbar_expect_tx(&full[b], R * twc * p.cc * 4 + w_floats * 4);
+        tma_plane(st, &map, c, ox0, oy0 + s - c * p.kh, &full[b]);
+        bulk_copy(st + in_bytes, wsl + (size_t)s * w_floats, w_floats * 4, &full[b]);
+      }
+    }
+    return;
+  }
+
+  // The consumers.  Warp w: row w / WPR of the block, columns c0 .. c0 + TM
+  // - 1; lane (g, ng): channel quads g + KGW * i of each chunk, output
+  // columns 4 * (ng + NG * q) + 0..3.
+  const int g = lane / NG, ng = lane - g * NG;
+  const int r = warp / WPR, c0 = (warp - r * WPR) * TM;
+  const int ni = p.cc / (4 * KGW);  // channel quads a K-group reads a tap
+  float4 acc[TM][TQ];
+#pragma unroll
+  for (int j = 0; j < TM; ++j)
+#pragma unroll
+    for (int q = 0; q < TQ; ++q) acc[j][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  mbar_wait(&full[0], 0);
+  // PROFILE LAP 0
+
+  for (int s = 0; s < nst; ++s) {
+    const int b = s % p.nbuf;
+    mbar_wait(&full[b], (s / p.nbuf) & 1);
+    const float* in =
+        reinterpret_cast<const float*>(dyn + b * stage_bytes) + (r * twc + c0) * p.cc + 4 * g;
+    const float* wt = reinterpret_cast<const float*>(dyn + b * stage_bytes + in_bytes) + 4 * lane;
+    // B of tap tx, quad i at (tx * ni + i) * 4 * TQ * 128 floats
+    if (KW == 0) {
+      // K order: tap, channel quad, channel
+      for (int tx = 0; tx < p.kw; ++tx)
+        for (int i = 0; i < ni; ++i) {
+          const float* ap = in + tx * p.cc + 4 * KGW * i;
+          float4 a[TM];
+#pragma unroll
+          for (int j = 0; j < TM; ++j) a[j] = *reinterpret_cast<const float4*>(ap + j * p.cc);
+          fma_quad<TM, TQ>(acc, a, wt + (tx * ni + i) * (4 * TQ * 128));
+        }
+    } else {
+      // K order: channel quad, tap, channel
+      constexpr int WIN = TM + (KW > 0 ? KW : 1) - 1;
+      for (int i = 0; i < ni; ++i) {
+        const float* ap = in + 4 * KGW * i;
+        float4 a[WIN];
+#pragma unroll
+        for (int j = 0; j < WIN; ++j) a[j] = *reinterpret_cast<const float4*>(ap + j * p.cc);
+#pragma unroll
+        for (int tx = 0; tx < KW; ++tx)
+          fma_quad<TM, TQ>(acc, a + tx, wt + (tx * ni + i) * (4 * TQ * 128));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[b]);  // every lane's reads of the stage are done
+  }
+  // PROFILE LAP 1
+
+  // The K-groups' sums: a butterfly over the lane bits of g in a fixed
+  // order; fl(a + b) == fl(b + a), so every lane of a pixel group ends with
+  // the same bits.
+#pragma unroll
+  for (int m = NG; m < 32; m <<= 1)
+#pragma unroll
+    for (int j = 0; j < TM; ++j)
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+        acc[j][q].x = __fadd_rn(acc[j][q].x, __shfl_xor_sync(0xffffffffu, acc[j][q].x, m));
+        acc[j][q].y = __fadd_rn(acc[j][q].y, __shfl_xor_sync(0xffffffffu, acc[j][q].y, m));
+        acc[j][q].z = __fadd_rn(acc[j][q].z, __shfl_xor_sync(0xffffffffu, acc[j][q].z, m));
+        acc[j][q].w = __fadd_rn(acc[j][q].w, __shfl_xor_sync(0xffffffffu, acc[j][q].w, m));
+      }
+  // PROFILE LAP 2
+
+  // The epilogue: K-group g stores pixels j = g, g + KGW, ...
+  const int oy = oy0 + r;
+  if (oy < p.h) {
+    const bool vec = (p.cout & 3) == 0;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int ox = ox0 + c0 + j;
+      if (j % KGW != g || ox >= p.w) continue;
+      float* o = p.out + ((size_t)oy * p.w + ox) * p.cout;
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+        const int n = blockIdx.y * BN + 4 * (ng + NG * q);
+        if (n >= p.cout) continue;
+        float y[4] = {acc[j][q].x, acc[j][q].y, acc[j][q].z, acc[j][q].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = epilogue(y[e], min(n + e, p.cout - 1), p.epi, p.bias, p.scale, p.shift);
+        if (vec) {
+          *reinterpret_cast<float4*>(o + n) = make_float4(y[0], y[1], y[2], y[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n + e < p.cout) o[n + e] = y[e];
+        }
+      }
+    }
+  }
+  // PROFILE LAP 3
 }
 
 template <int BN, int RW>
@@ -633,6 +841,41 @@ cudaError_t launch_wgmma(const Params& p, const CUtensorMap& map, cudaStream_t s
                   (p.cout + BN - 1) / BN);
   conv_wgmma_kernel<BN, RW><<<grid, THREADS, bytes, s>>>(p, map);
   return cudaGetLastError();
+}
+
+
+// The f32 path's launch: the (bn, tm) instantiations ops/conv_matmul.py's
+// FMA_TILES picks from, with the windows of FMA_WINDOWS.
+template <int TM, int TQ, int NG, int KW>
+cudaError_t launch_fma(const FmaParams& p, const CUtensorMap& map, cudaStream_t s) {
+  constexpr int BN = 4 * TQ * NG, R = TM / 2;
+  const int bytes = p.nbuf * (fma_in_bytes(R, p.kw, p.cc) + fma_w_bytes(BN, p.kw, p.cc));
+  if (bytes > MAX_DYN_BYTES || p.cc % (128 / NG) || (KW > 0 && p.kw != KW))
+    return cudaErrorInvalidValue;
+  static bool configured = false;  // the attribute once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_fma_kernel<TM, TQ, NG, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MAX_DYN_BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(((p.h + R - 1) / R) * ((p.w + FMA_COLS - 1) / FMA_COLS), (p.cout + BN - 1) / BN);
+  conv_fma_kernel<TM, TQ, NG, KW><<<grid, FMA_THREADS, bytes, s>>>(p, map);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up once through its entry point.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      encode = nullptr;
+  }
+  return encode;
 }
 
 }  // namespace
@@ -670,14 +913,8 @@ extern "C" int rst_conv_matmul(const void* x, const void* slices, const void* st
     return static_cast<int>(cudaErrorInvalidValue);
   // the input's tensor map: a box (8 channels, tw, th) a plane, its planes
   // 128-byte aligned in shared memory (plane_px a multiple of 8)
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<int>(cudaErrorNotSupported);
-  }
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map = {};
   const cuuint64_t dims[4] = {8, (cuuint64_t)(cin / 8), (cuuint64_t)wp, (cuuint64_t)hp};
   const cuuint64_t strides[3] = {16, (cuuint64_t)cin * 2, (cuuint64_t)wp * cin * 2};
@@ -709,20 +946,58 @@ extern "C" int rst_conv_matmul(const void* x, const void* slices, const void* st
   return static_cast<int>(err);
 }
 
-// The f32 path: x (hp, wp, cin), kernel (kh, kw, cin, cout) HWIO, out f32.
-extern "C" int rst_conv_matmul_f32(const void* x, const void* kernel, const void* bias,
-                                   const void* scale, const void* shift, void* out, int hp,
-                                   int wp, int cin, int kh, int kw, int cout, int epi,
+// The f32 path.  x: (hp, wp, cin) f32, cin a multiple of cc (a multiple
+// of 4) and x 16-byte aligned (the TMA boxes); slices: the weights of
+// ops/conv_matmul.py pack_fma for (kh, kw, cin, cout) at (bn, tm, cc),
+// 16-byte aligned; out: (hp-kh+1, wp-kw+1, cout) f32; bias, scale, shift as
+// the bf16 path's; nbuf stage buffers; counters: null (halo_profile.py's
+// clock64 counters).
+extern "C" int rst_conv_matmul_f32(const void* x, const void* slices, const void* bias,
+                                   const void* scale, const void* shift, void* out,
+                                   void* counters, int hp, int wp, int cin, int kh, int kw,
+                                   int cout, int epi, int bn, int tm, int cc, int nbuf,
                                    void* stream) {
-  if (hp - kh + 1 < 1 || wp - kw + 1 < 1 || cin < 1 || cout < 1 || epi < 0 || epi > 2 ||
-      (epi > 0 && !bias) || (epi == 2 && (!scale || !shift)))
+  FmaParams p;
+  p.slices = static_cast<const float*>(slices);
+  p.bias = static_cast<const float*>(bias);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.out = static_cast<float*>(out);
+  p.counters = static_cast<long long*>(counters);
+  p.kh = kh, p.kw = kw, p.cout = cout, p.epi = epi;
+  p.h = hp - kh + 1, p.w = wp - kw + 1;
+  p.cc = cc, p.nchunks = cc > 0 ? cin / cc : 0, p.nbuf = nbuf;
+  if (p.h < 1 || p.w < 1 || kh < 1 || kw < 1 || cout < 1 || epi < 0 || epi > 2 ||
+      (epi > 0 && !bias) || (epi == 2 && (!scale || !shift)) || cc < 4 || cc % 4 || cc > 256 ||
+      cin < cc || cin % cc || nbuf < 2 || nbuf > FMA_MAX_BUF || FMA_COLS + kw - 1 > 256 ||
+      tm < 4 || tm > 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(slices) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int h = hp - kh + 1, w = wp - kw + 1;
-  const dim3 grid((h * w + 7) / 8, (cout + 31) / 32);
-  conv_f32<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(kernel),
-      static_cast<const float*>(bias), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<float*>(out), hp, wp, cin, kh, kw, cout,
-      epi);
-  return static_cast<int>(cudaGetLastError());
+  // the input's tensor map: (cc channels, cin / cc chunks, wp, hp), a box
+  // (cc channels, one chunk, 16 + kw - 1 columns, tm / 2 rows) a stage,
+  // pixel-major in shared memory
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map = {};
+  const cuuint64_t dims[4] = {(cuuint64_t)cc, (cuuint64_t)(cin / cc), (cuuint64_t)wp,
+                              (cuuint64_t)hp};
+  const cuuint64_t strides[3] = {(cuuint64_t)cc * 4, (cuuint64_t)cin * 4,
+                                 (cuuint64_t)wp * cin * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)cc, 1, (cuuint32_t)(FMA_COLS + kw - 1),
+                             (cuuint32_t)(tm / 2)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  // the (bn, tm) instantiations of ops/conv_matmul.py's FMA_TILES, a
+  // sliding window where FMA_WINDOWS names the tile's kw
+  if (bn == 48 && tm == 4) err = kw == 3 ? launch_fma<4, 3, 4, 3>(p, map, s)
+                                               : launch_fma<4, 3, 4, 0>(p, map, s);
+  else if (bn == 96 && tm == 8) err = launch_fma<8, 3, 8, 0>(p, map, s);
+  else if (bn == 128 && tm == 16) err = kw == 5 ? launch_fma<16, 1, 32, 5>(p, map, s)
+                                                 : launch_fma<16, 1, 32, 0>(p, map, s);
+  return static_cast<int>(err);
 }

@@ -44,12 +44,14 @@ of each block, microseconds at the card's maximum SM clock, the median over
 the blocks).
 
 Then the packed path's ``conv_matmul``: each of its four launches (the
-packed stem and final conv of rst-960-120-128-17 and rst-1920-120-128-17) by
-graph replay beside each ROOT's own ``conv_valid_matmul`` (its weights packed
-by its own ``pack_taps`` where it has one; this one's input with its
-channels padded to the packed kernel's, as the packed path's ``F.pad`` pads
-them, each ROOT's as it is) and ``F.conv2d``, with the phases of a ``conv_wgmma_kernel`` block
-read the same way; then the packed frame (``PackedTransfer`` with
+packed stem and final conv of rst-960-120-128-17 and rst-1920-120-128-17),
+bf16 and then f32, by graph replay beside each ROOT's own
+``conv_valid_matmul`` (its weights packed by its own ``pack_taps`` or
+``pack_fma`` where it has one; this one's input with its channels padded to
+the packed kernel's, as the packed path's ``F.pad`` pads them, each ROOT's
+as it is; f32: each ROOT's largest difference from this kernel) and
+``F.conv2d``, with the phases of a ``conv_wgmma_kernel`` or
+``conv_fma_kernel`` block read the same way; then the packed frame (``PackedTransfer`` with
 ``conv_backend="pallas"``) of rst-960 with one style and rst-1920 with two,
 each ROOT's engine and this one's on the same seeded variables, in turns
 ROOT, this, this, ROOT (CUDA events, the median of 5 windows of 20 frames),
@@ -68,6 +70,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -87,9 +90,10 @@ PHASES = {
     "conv_window_kernel": ("fill + fold", "input wait", "window pass", "K loop", "epilogue",
                            "moments flush"),
 }
-# the same for conv_matmul.cu's kernel
+# the same for conv_matmul.cu's kernels
 MATMUL_PHASES = {
     "conv_wgmma_kernel": ("set-up", "fill wait", "K loop", "sums to shared", "epilogue"),
+    "conv_fma_kernel": ("set-up + fill wait", "K loop", "K-group sums", "epilogue"),
 }
 # the same for act_stats.cu's kernel
 PASS_PHASES = {"act_stats_kernel": ("copies + fold", "stream", "flush")}
@@ -121,9 +125,16 @@ CASES = (
 )
 
 
+def _signature(text: str, name: str) -> Optional[int]:
+    """Where kernel ``name``'s signature ``name(const <Params type> p`` starts
+    in ``text``, or None."""
+    found = re.search(rf"\b{name}\(const \w*Params p\b", text)
+    return found.start() if found else None
+
+
 def _kernel_span(text: str, name: str):
     """(start, end) of the body of kernel ``name`` in ``text``."""
-    start = text.index(" {\n", text.index(f"{name}(const Params p")) + 3
+    start = text.index(" {\n", _signature(text, name)) + 3
     return start, text.index("\n}\n", start)
 
 
@@ -134,7 +145,7 @@ def profiled_source(text: str) -> str:
     i`` markers, in order i = 0, 1, ..., close counter i; each block's thread
     0 writes them to ``Params::counters``, 8 a block."""
     for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES, **CIN_PHASES}.items():
-        if f"{name}(const Params p" not in text:
+        if _signature(text, name) is None:
             continue
         start, end = _kernel_span(text, name)
         kernel = text[start:end]
@@ -282,8 +293,9 @@ def _window_ms(fn, reps: int = 10, windows: int = 3) -> float:
 
 
 def matmul_part(prof, others, mhz: float) -> None:
-    """The packed path's four conv_matmul launches beside each ROOT's and
-    F.conv2d's, with their block phases; then the packed frames in turns."""
+    """The packed path's four conv_matmul launches, bf16 and f32, beside
+    each ROOT's and F.conv2d's, with their block phases; then the packed
+    frames in turns."""
     from .config import ShapeConfig
     from .models.inference import make_inference_model, plan_from_config
     from .models.transfer_packed import PackedTransfer
@@ -295,46 +307,61 @@ def matmul_part(prof, others, mhz: float) -> None:
             for name, k in others.items()}
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
-    for spec in MATMUL_SPECS:
-        for seam, (hp, wp, k, _, cin, cout) in conv_matmul_launches(
-                plan_from_config(ShapeConfig.from_spec(spec))).items():
-            x = torch.randn((hp, wp, cin), generator=gen, device=dev).to(bf16)
-            w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
-                 / (k * k * cin) ** 0.5).to(bf16)
-            epi = dict(epilogue="none")
-            if seam == "stem":
-                epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
-                           scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
-                           shift=torch.randn(cout, generator=gen, device=dev) * 0.1,
-                           epilogue="contract")
-            taps = cm.pack_taps(w)
-            pl = taps.plan
-            xk = F.pad(x, (0, taps.kernel.shape[2] - cin))  # as the packed path pads it
-            row = [f"conv_matmul {spec} {seam} ({hp}, {wp}, {cin}) {k}x{k} -> {cout} "
-                   f"(bn {pl.bn}, rw {pl.rw}, {pl.nchunks} chunks, K {pl.k}):"]
-            row.append(f"kernel {graph_ms(lambda: cm.conv_valid_matmul(xk, taps, **epi)):.4f} ms")
-            for name, mod in mods.items():
-                kern = mod.pack_taps(w) if hasattr(mod, "pack_taps") else w
-                row.append(f"{name} {graph_ms(lambda: mod.conv_valid_matmul(x, kern, **epi)):.4f}"
+    for dtype in (bf16, torch.float32):
+        # each path's packing, its plan's summary, its launch and its kernel's phases
+        pack, launch, kernel_name = ((cm.pack_taps, cm.launch_wgmma, "conv_wgmma_kernel")
+                                     if dtype == bf16 else
+                                     (cm.pack_fma, cm.launch_fma, "conv_fma_kernel"))
+        for spec in MATMUL_SPECS:
+            for seam, (hp, wp, k, _, cin, cout) in conv_matmul_launches(
+                    plan_from_config(ShapeConfig.from_spec(spec))).items():
+                x = torch.randn((hp, wp, cin), generator=gen, device=dev).to(dtype)
+                w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
+                     / (k * k * cin) ** 0.5).to(dtype)
+                epi = dict(epilogue="none")
+                if seam == "stem":
+                    epi = dict(bias=torch.randn(cout, generator=gen, device=dev) * 0.1,
+                               scale=torch.rand(cout, generator=gen, device=dev) + 0.5,
+                               shift=torch.randn(cout, generator=gen, device=dev) * 0.1,
+                               epilogue="contract")
+                packed = pack(w)
+                pl = packed.plan
+                xk = F.pad(x, (0, packed.kernel.shape[2] - cin))  # as the packed path pads it
+                shape = (f"bn {pl.bn}, rw {pl.rw}, {pl.nchunks} chunks, K {pl.k}"
+                         if dtype == bf16 else
+                         f"bn {pl.bn}, tm {pl.tm}, cc {pl.cc}, {pl.stages} stages, "
+                         f"{pl.nbuf} buffers")
+                row = [f"conv_matmul {str(dtype)[6:]} {spec} {seam} ({hp}, {wp}, {cin}) "
+                       f"{k}x{k} -> {cout} ({shape}):"]
+                mine = cm.conv_valid_matmul(xk, packed, **epi)
+                row.append(f"kernel {graph_ms(lambda: cm.conv_valid_matmul(xk, packed, **epi)):.4f}"
                            " ms")
-            xp = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
-            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            row.append(f"F.conv2d {graph_ms(lambda: F.conv2d(xp, wl)):.4f} ms")
-            h, w_ = hp - k + 1, wp - k + 1
-            out = torch.empty((h, w_, cout), dtype=bf16, device=dev)
-            rows = (None, None, None)
-            if seam == "stem":
-                rows = cm._epilogue_rows(cout, dev, epi["bias"], epi["scale"], epi["shift"])
-            counters = torch.zeros(pl.grid(h, w_)[0] * 8, dtype=torch.int64, device=dev)
-            for _ in range(3):
-                counters.zero_()
-                err = cm.launch_wgmma(prof, xk, taps, rows, out, cm.EPILOGUES[epi["epilogue"]],
-                                      counters)
-                if err:
-                    raise RuntimeError(f"profiled conv_matmul: CUDA error {err}")
-            torch.cuda.synchronize()
-            row.append(_phases(counters, MATMUL_PHASES["conv_wgmma_kernel"], mhz))
-            print("  ".join(row), flush=True)
+                for name, mod in mods.items():
+                    has_pack = hasattr(mod, "pack_taps" if dtype == bf16 else "pack_fma")
+                    kern = (mod.pack_taps if dtype == bf16 else mod.pack_fma)(w) if has_pack else w
+                    row.append(f"{name} {graph_ms(lambda: mod.conv_valid_matmul(x, kern, **epi)):.4f}"
+                               " ms")
+                    if dtype != bf16:
+                        diff = (mod.conv_valid_matmul(x, kern, **epi) - mine).abs().max().item()
+                        row.append(f"(max |{name} - kernel| {diff:.3e})")
+                xp = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+                wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                row.append(f"F.conv2d {graph_ms(lambda: F.conv2d(xp, wl)):.4f} ms")
+                h, w_ = hp - k + 1, wp - k + 1
+                out = torch.empty((h, w_, cout), dtype=dtype, device=dev)
+                rows = (None, None, None)
+                if seam == "stem":
+                    rows = cm._epilogue_rows(cout, dev, epi["bias"], epi["scale"], epi["shift"])
+                counters = torch.zeros(pl.grid(h, w_)[0] * 8, dtype=torch.int64, device=dev)
+                for _ in range(3):
+                    counters.zero_()
+                    err = launch(prof, xk, packed, rows, out, cm.EPILOGUES[epi["epilogue"]],
+                                 counters)
+                    if err:
+                        raise RuntimeError(f"profiled conv_matmul: CUDA error {err}")
+                torch.cuda.synchronize()
+                row.append(_phases(counters, MATMUL_PHASES[kernel_name], mhz))
+                print("  ".join(row), flush=True)
 
     engines = {name: importlib.import_module(
         k.__name__.rsplit(".", 2)[0] + ".models.transfer_packed").PackedTransfer
@@ -684,6 +711,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("halo_profile: no CUDA device", file=sys.stderr)
         return 2
+    # f32 yardsticks in full f32, as the f32 kernels compute
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     parts = PARTS
     if argv[:1] == ["--parts"]:
         parts, argv = tuple(argv[1].split(",")), argv[2:]

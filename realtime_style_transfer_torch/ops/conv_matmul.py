@@ -11,15 +11,18 @@ x.dtype (bf16 or f32).  The packed path runs it at its stride-1 seams
 
 Two paths, chosen by the input's type: ``wgmma`` (bf16: ``conv_wgmma_kernel``,
 both MMA operands in shared memory, the input tile plane-major and both
-operands streamed by TMA; :func:`tap_plan` lays them out) and ``f32`` (an FMA
-kernel that holds JAX's f32 tolerance).  The bf16 path's weights are packed
-once by :func:`pack_taps` into a :class:`TapWeights`, Cin zero-padded to
-a multiple of 8 (the input comes in TMA boxes of 8 channels);
+operands streamed by TMA; :func:`tap_plan` lays them out) and ``f32``
+(``conv_fma_kernel``: an implicit GEMM of f32 FMAs on the CUDA cores, which
+holds JAX's f32 tolerance; :func:`fma_plan` tiles it).  The bf16 path's
+weights are packed once by :func:`pack_taps` into a :class:`TapWeights`, Cin
+zero-padded to a multiple of 8 (the input comes in TMA boxes of 8
+channels); the f32 path's by :func:`pack_fma` into an :class:`FmaWeights`,
+Cin zero-padded to whole chunks (a TMA box a chunk);
 :class:`PackedTransfer <..models.transfer_packed.PackedTransfer>` keeps them on its
 :class:`.packed_conv.PackedConv` and pads its input's channels in the same
 ``F.pad`` as its pixels.  A raw HWIO kernel handed to
-:func:`conv_valid_matmul` is packed on every call, and an input whose Cin is
-not a multiple of 8 is zero-padded to the packed kernel's.
+:func:`conv_valid_matmul` is packed on every call, and an input with the
+kernel's own Cin is zero-padded to the packed kernel's.
 
 On a CPU tensor :func:`conv_valid_matmul` runs :func:`conv_valid_matmul_plain`
 (the same tap matmuls in f32, the same epilogue, one rounding to x.dtype); on
@@ -55,6 +58,14 @@ ONE_CHUNK_PLANES = 12  # ... and of at most this many in two halves
 # (bn, rw) instantiations: BN output columns a block, RW m64 tiles a warpgroup
 BLOCK_N = (8, 16, 32, 48, 64, 96, 128, 192, 256)
 ROWS = {8: 2, 16: 2, 32: 2, 48: 2, 64: 2, 96: 2, 128: 1, 192: 1, 256: 1}
+# the f32 path's conv_fma_kernel: BN output columns a block -> (TM pixels a
+# lane, TQ column quads a lane, NG column groups a warp: 32 // NG K-groups)
+FMA_TILES = {48: (4, 3, 4), 96: (8, 3, 8), 128: (16, 1, 32)}
+FMA_WINDOWS = {48: 3, 128: 5}  # the tile's kw that runs a sliding window (the finals, the stem)
+FMA_WIDE_BN = 96    # the column block of a Cout above the widest tile
+FMA_WARPS = 8       # consumer warps a block, TM pixels of one output row each
+FMA_COLS = 16       # output columns of a block
+FMA_MAX_BUF = 4     # stage buffers at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,11 +252,155 @@ def pack_taps(kernel: torch.Tensor) -> TapWeights:
     return TapWeights(kernel, plan, slices, steps)
 
 
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class FmaPlan:
+    """How ``conv_fma_kernel`` runs a (kh, kw, cin, cout) f32 kernel.
+
+    A block owns ``rows`` output rows x ``FMA_COLS`` columns and ``bn``
+    output columns; warp w the ``tm`` pixels at row ``w // (FMA_COLS //
+    tm)``, its lane (g, n) = (lane // ng, lane % ng) the columns
+    ``4 * (n + ng * q) + 0..3`` (q < ``tq``) and the channel quads
+    ``g + kgw * i`` of each chunk (i < ``ni``).  K runs in stages, one chunk
+    of ``cc`` channels and one tap row each (chunk major), through ``nbuf``
+    buffers: the input box (``rows`` x ``twc`` pixels x ``cc`` channels) and
+    the stage's weight slice (``kw`` x ``cc`` x ``bn``); inside a stage,
+    tap, channel quad, channel, or with a ``window`` (the kernel's kw, for
+    the tiles of FMA_WINDOWS) channel quad, tap, channel.
+    """
+
+    kh: int
+    kw: int
+    cin: int
+    cout: int
+    bn: int
+    tm: int
+    tq: int
+    ng: int
+    cc: int
+    nchunks: int
+    nbuf: int
+
+    @property
+    def kgw(self) -> int:
+        """K-groups a warp."""
+        return 32 // self.ng
+
+    @property
+    def window(self) -> int:
+        """The sliding window's taps (0: a tap at a time)."""
+        return self.kw if FMA_WINDOWS.get(self.bn) == self.kw else 0
+
+    @property
+    def ni(self) -> int:
+        """Channel quads a K-group reads a tap of a stage."""
+        return self.cc // (4 * self.kgw)
+
+    @property
+    def rows(self) -> int:
+        return self.tm // 2
+
+    @property
+    def twc(self) -> int:
+        """Input columns of a box."""
+        return FMA_COLS + self.kw - 1
+
+    @property
+    def cin_x(self) -> int:
+        """The input's channels: Cin zero-padded to whole chunks."""
+        return self.nchunks * self.cc
+
+    @property
+    def stages(self) -> int:
+        return self.nchunks * self.kh
+
+    @property
+    def col_blocks(self) -> int:
+        return -(-self.cout // self.bn)
+
+    @property
+    def stage_bytes(self) -> int:
+        """A stage's input box and weight slice, each padded to 128 bytes
+        (conv_matmul.cu's fma_in_bytes, fma_w_bytes)."""
+        return (_align128(self.rows * self.twc * self.cc * 4)
+                + _align128(self.kw * self.cc * self.bn * 4))
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.nbuf * self.stage_bytes
+
+    def grid(self, h: int, w: int) -> Tuple[int, int]:
+        """conv_matmul.cu's launch grid for an (h, w) output."""
+        return -(-h // self.rows) * -(-w // FMA_COLS), self.col_blocks
+
+
+def fma_plan(kh: int, kw: int, cin: int, cout: int) -> FmaPlan:
+    """The f32 path's plan for a (kh, kw, cin, cout) kernel: the column
+    block ``bn`` (the narrowest tile that holds Cout, else column blocks of
+    ``FMA_WIDE_BN``) and its lane tile; then the chunk ``cc`` (4 * kgw * ni
+    channels, ni a power of 2, at most 256) with the fewest padded
+    channels, then the widest (the fewest stages: each stage costs a wait
+    and a pipeline refill, measured on the card), then the most stage
+    buffers that fit shared memory."""
+    bn = next((b for b in sorted(FMA_TILES) if b >= cout), FMA_WIDE_BN)
+    tm, tq, ng = FMA_TILES[bn]
+    best = None
+    cc = 4 * (32 // ng)
+    while cc <= 256:
+        nchunks = -(-cin // cc)
+        for nbuf in range(FMA_MAX_BUF, 1, -1):
+            pl = FmaPlan(kh, kw, cin, cout, bn, tm, tq, ng, cc, nchunks, nbuf)
+            if pl.smem_bytes <= MAX_DYN_BYTES and pl.twc <= 256:
+                key = (nchunks * cc - cin, -cc, -nbuf)
+                if best is None or key < best[0]:
+                    best = (key, pl)
+                break
+        cc *= 2
+    if best is None:
+        raise ValueError(f"conv_valid_matmul: no f32 stage of a {kh}x{kw} kernel fits "
+                         "shared memory")
+    return best[1]
+
+
+class FmaWeights(NamedTuple):
+    """An f32 HWIO kernel packed for the f32 path: its plan (``plan.cin``
+    the kernel's own Cin) and its stage slices, (col_blocks, stages, kw * cc
+    * bn) f32 on the kernel's device (:func:`pack_fma`); ``kernel`` is the
+    HWIO tensor (the plain version's), its Cin zero-padded to
+    ``plan.cin_x``."""
+
+    kernel: torch.Tensor
+    plan: FmaPlan
+    slices: torch.Tensor
+
+
+def pack_fma(kernel: torch.Tensor) -> FmaWeights:
+    """Pack an f32 HWIO kernel for :func:`conv_valid_matmul`: stage s = (chunk
+    s // kh, tap row s % kh), inside it (tap, quad i, channel kk, column quad
+    q, lane) with lane = g * ng + n, holding channel ``chunk * cc + 4 *
+    (i * kgw + g) + kk`` and columns ``cb * bn + 4 * (n + ng * q) + 0..3``;
+    zeros past Cin and Cout.  Done once, at engine assembly, by
+    :meth:`.packed_conv.PackedConv.with_taps`."""
+    if kernel.ndim != 4:
+        raise ValueError(f"want an HWIO kernel (kh, kw, Cin, Cout), got {tuple(kernel.shape)}")
+    kh, kw, cin, cout = kernel.shape
+    pl = fma_plan(kh, kw, cin, cout)
+    full = kernel.new_zeros((kh, kw, pl.cin_x, pl.col_blocks * pl.bn))
+    full[:, :, :cin, :cout] = kernel
+    t = full.reshape(kh, kw, pl.nchunks, pl.ni, pl.kgw, 4, pl.col_blocks, pl.tq, pl.ng, 4)
+    slices = t.permute(6, 2, 0, 1, 3, 5, 7, 4, 8, 9).reshape(
+        pl.col_blocks, pl.stages, kw * pl.cc * pl.bn).contiguous()
+    return FmaWeights(full[..., :cout].contiguous(), pl, slices)
+
+
 def _operands(x: torch.Tensor, kernel: Kernel):
     """x and the HWIO kernel it is multiplied by: a TapWeights' (Cin padded
-    to a multiple of 8), x's channels zero-padded to match where it has the
-    kernel's own Cin."""
-    if not isinstance(kernel, TapWeights):
+    to a multiple of 8) or an FmaWeights' (to whole chunks), x's channels
+    zero-padded to match where it has the kernel's own Cin."""
+    if not isinstance(kernel, (TapWeights, FmaWeights)):
         return x, kernel
     cin8 = kernel.kernel.shape[2]
     if x.ndim == 3 and x.shape[2] == kernel.plan.cin < cin8:
@@ -289,7 +444,7 @@ def _shapes(x: torch.Tensor, kernel: torch.Tensor, epilogue: str):
     return h, w, cout
 
 
-Kernel = Union[torch.Tensor, TapWeights]
+Kernel = Union[torch.Tensor, TapWeights, FmaWeights]
 
 
 def path_of(dtype: torch.dtype) -> str:
@@ -323,8 +478,9 @@ def conv_valid_matmul(x: torch.Tensor, kernel: Kernel, *,
                       epilogue: str = "none") -> torch.Tensor:
     """VALID stride-1 conv of the pre-padded single image ``x`` (Hp, Wp, Cin)
     by the HWIO ``kernel`` (kh, kw, Cin, Cout) of the same dtype (bf16 or
-    f32), or a bf16 one packed by :func:`pack_taps` -> (Hp-kh+1, Wp-kw+1,
-    Cout) in x.dtype, with the f32 ``epilogue`` (``none``, ``bias`` or
+    f32), or one packed by :func:`pack_taps` (bf16) or :func:`pack_fma`
+    (f32) -> (Hp-kh+1, Wp-kw+1, Cout) in x.dtype, with the f32 ``epilogue``
+    (``none``, ``bias`` or
     ``contract``; bias, scale and shift are (Cout,) rows, zeros where not
     given)."""
     if x.device.type == "cpu":
@@ -332,14 +488,13 @@ def conv_valid_matmul(x: torch.Tensor, kernel: Kernel, *,
                                        epilogue=epilogue)
     if x.device.type != "cuda":
         raise ValueError(f"conv_valid_matmul runs on CUDA or the CPU, not {x.device}")
-    if x.dtype == torch.bfloat16 and isinstance(kernel, torch.Tensor):
-        _shapes(x, kernel, epilogue)  # before pack_taps pads Cin
-        kernel = pack_taps(kernel)
-    taps = kernel if isinstance(kernel, TapWeights) else None
+    if isinstance(kernel, torch.Tensor) and kernel.dtype == x.dtype \
+            and x.dtype in (torch.bfloat16, torch.float32):
+        _shapes(x, kernel, epilogue)  # before packing pads Cin
+        kernel = (pack_taps if x.dtype == torch.bfloat16 else pack_fma)(kernel)
+    packed = kernel
     x, kernel = _operands(x, kernel)
     h, w, cout = _shapes(x, kernel, epilogue)
-    hp, wp, cin = x.shape
-    kh, kw = kernel.shape[:2]
     if x.dtype not in (torch.bfloat16, torch.float32) or kernel.dtype != x.dtype \
             or kernel.device != x.device:
         raise ValueError(f"conv_valid_matmul: want bf16 or f32 x and a kernel of the same "
@@ -347,9 +502,8 @@ def conv_valid_matmul(x: torch.Tensor, kernel: Kernel, *,
                          f"{kernel.dtype} on {kernel.device}")
     if not (x.is_contiguous() and kernel.is_contiguous()):
         raise ValueError("conv_valid_matmul: want contiguous x and kernel")
-    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
-        raise ValueError("conv_valid_matmul: a bf16 x comes by TMA and must start 16-byte "
-                         "aligned")
+    if x.data_ptr() % 16:
+        raise ValueError("conv_valid_matmul: x comes by TMA and must start 16-byte aligned")
     rows = (None, None, None)
     if epilogue != "none":
         rows = _epilogue_rows(cout, x.device, bias, scale, shift)
@@ -359,12 +513,9 @@ def conv_valid_matmul(x: torch.Tensor, kernel: Kernel, *,
     lib = kernels._lib("conv_matmul.cu")
     path = path_of(x.dtype)
     if path == "f32":
-        err = lib.rst_conv_matmul_f32(
-            kernels._ptr(x), kernels._ptr(kernel), *(kernels._ptr(r) for r in rows),
-            kernels._ptr(out), hp, wp, cin, kh, kw, cout, EPILOGUES[epilogue],
-            kernels._stream(x))
+        err = launch_fma(lib, x, packed, rows, out, EPILOGUES[epilogue])
     else:
-        err = launch_wgmma(lib, x, taps, rows, out, EPILOGUES[epilogue])
+        err = launch_wgmma(lib, x, packed, rows, out, EPILOGUES[epilogue])
     if err:
         raise RuntimeError(f"conv_valid_matmul: CUDA error {err} at launch")
     conv_valid_matmul.launches += 1
@@ -389,6 +540,18 @@ def launch_wgmma(lib, x: torch.Tensor, taps: TapWeights, rows, out: torch.Tensor
         pl.plane_px, kernels._stream(x))
 
 
+def launch_fma(lib, x: torch.Tensor, fw: FmaWeights, rows, out: torch.Tensor, epi: int,
+               counters: Optional[torch.Tensor] = None) -> int:
+    """One launch of ``rst_conv_matmul_f32`` from ``lib`` (the built source,
+    or halo_profile.py's copy with clock64 counters); returns its CUDA error."""
+    pl = fw.plan
+    hp, wp, cin = x.shape
+    return lib.rst_conv_matmul_f32(
+        kernels._ptr(x), kernels._ptr(fw.slices), *(kernels._ptr(r) for r in rows),
+        kernels._ptr(out), kernels._ptr(counters), hp, wp, cin, pl.kh, pl.kw, pl.cout, epi,
+        pl.bn, pl.tm, pl.cc, pl.nbuf, kernels._stream(x))
+
+
 def reset_launch_counts() -> None:
     conv_valid_matmul.launches = 0
     conv_valid_matmul.path_launches = dict.fromkeys(PATHS, 0)
@@ -397,11 +560,13 @@ def reset_launch_counts() -> None:
 def conv_same_batched(x: torch.Tensor, kernel: Kernel) -> torch.Tensor:
     """SAME stride-1 conv on (B, H, W, Cin) via :func:`conv_valid_matmul`:
     pads once (``(k-1)//2`` before, the rest after; a packed kernel's Cin
-    padding too), one call a batch item (a raw bf16 kernel on the card is
-    packed once for all of them)."""
+    padding too), one call a batch item (a raw kernel on the card is packed
+    once for all of them)."""
     if x.is_cuda and isinstance(kernel, torch.Tensor) and kernel.dtype == torch.bfloat16:
         kernel = pack_taps(kernel)
-    kh, kw, cin = (kernel.kernel if isinstance(kernel, TapWeights) else kernel).shape[:3]
+    elif x.is_cuda and isinstance(kernel, torch.Tensor) and kernel.dtype == torch.float32:
+        kernel = pack_fma(kernel)
+    kh, kw, cin = (kernel if isinstance(kernel, torch.Tensor) else kernel.kernel).shape[:3]
     pb_y, pb_x = (kh - 1) // 2, (kw - 1) // 2
     xp = F.pad(x, (0, max(cin - x.shape[3], 0), pb_x, kw - 1 - pb_x, pb_y, kh - 1 - pb_y))
     return torch.stack([conv_valid_matmul(xp[i], kernel) for i in range(xp.shape[0])])

@@ -99,7 +99,7 @@ _ARGTYPES = {
     "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
     "rst_conv_matmul": [_P] * 8 + [_I] * 13 + [_P],
-    "rst_conv_matmul_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "rst_conv_matmul_f32": [_P] * 7 + [_I] * 11 + [_P],
     "rst_probe_smem": [_I] * 4 + [_P] * 5,
     "rst_cin_forward": [_P, _I, _P, _P, _F] + [_P] * 4 + [_I] * 6 + [_P],
     "rst_cin_backward": [_P, _P, _I, _P, _P, _F] + [_P] * 5 + [_I] * 6 + [_P],

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from .conv import _axis_classes
 
 if TYPE_CHECKING:
-    from .conv_matmul import TapWeights
+    from .conv_matmul import FmaWeights, TapWeights
 
 BACKENDS = ("xla", "pallas")
 
@@ -187,7 +187,8 @@ class PackedConv(NamedTuple):
     pads_x: Tuple[int, int]         # the same for columns
     s_packed: int                   # packed-space stride
     scale: Tuple[int, int]          # packed out dim = packed in dim * scale[0] // scale[1]
-    taps: Optional["TapWeights"] = None  # ``weight`` packed for the tap-matmul kernel (with_taps)
+    # ``weight`` packed for the tap-matmul kernel (with_taps)
+    taps: Optional["TapWeights | FmaWeights"] = None
 
     @staticmethod
     def make(weight: torch.Tensor, pads_y, pads_x, s_packed: int, scale) -> "PackedConv":
@@ -199,13 +200,16 @@ class PackedConv(NamedTuple):
                                self.s_packed, self.scale)
 
     def with_taps(self) -> "PackedConv":
-        """This conv with its bf16 weight packed once for the tap-matmul
-        kernel (:func:`.conv_matmul.pack_taps`), which the ``pallas``
-        backend then launches without repacking it each frame."""
-        from .conv_matmul import pack_taps  # conv_matmul imports kernels, which imports this
-        if self.weight.dtype != torch.bfloat16 or self.s_packed != 1:
+        """This conv with its weight packed once for the tap-matmul kernel
+        (bf16: :func:`.conv_matmul.pack_taps`, f32:
+        :func:`.conv_matmul.pack_fma`), which the ``pallas`` backend then
+        launches without repacking it each frame."""
+        # conv_matmul imports kernels, which imports this
+        from .conv_matmul import pack_fma, pack_taps
+        pack = {torch.bfloat16: pack_taps, torch.float32: pack_fma}.get(self.weight.dtype)
+        if pack is None or self.s_packed != 1:
             return self
-        return self._replace(taps=pack_taps(self.weight))
+        return self._replace(taps=pack(self.weight))
 
     def out_hw(self, hp: int, wp: int) -> Tuple[int, int]:
         num, den = self.scale
@@ -238,7 +242,7 @@ def _padded(p: torch.Tensor, pc: PackedConv, cin: Optional[int] = None):
 def _tap_matmuls(p, pc, matmul, **epilogue) -> torch.Tensor:
     """One ``matmul`` a batch item on ``p`` padded for ``pc``: on its packed
     taps where it has them, the input's channels padded in the same
-    ``F.pad`` to the taps' Cin (a multiple of 8)."""
+    ``F.pad`` to the taps' Cin (bf16: a multiple of 8; f32: whole chunks)."""
     if matmul is None:
         # imported here: conv_matmul needs kernels, which imports pack / unpack from here
         from .conv_matmul import conv_valid_matmul as matmul
