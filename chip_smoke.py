@@ -79,11 +79,19 @@ Run from the repository root: ``python3 chip_smoke.py``.
    dispatch at most 4 + 4 fill operators (its two tables once, the CIN
    moments once a frame), none an ``act_stats`` launch.
    Probe: the int8 matmul probe's plain product and band pattern, bf16 and
-   int8 arms, checked against float64 (int8 exactly, bf16 within 2^-8 of the
-   largest value), timed, with the int8/bf16 time ratio, TOPS and share of the
-   dense peak; ``torch._int_mm`` on the residual conv's im2col GEMM and on the
-   probe's shape is timed as the int8 library yardstick (its error is printed
-   in its place if this build refuses the shape).
+   int8 arms (``csrc/probe_int8.cu`` on ``wgmma``), checked against float64
+   (int8 exactly, bf16 within 2^-8 of the largest value) and two calls
+   bit-equal at every count timed; the time a repetition is the median of
+   5 slopes between graph times at 16 and 64 repetitions (mm: 16 and 1024),
+   with their range, beside the bound a repetition at the card's max SM
+   clock (``nvidia-smi``) and its share of it, and the x64 launch beside its
+   bound, TOPS and share of the published dense peak; the int8/bf16 ratio
+   by slope (with the range the slopes' ranges give) and by launch.  Yardsticks, one library call a
+   repetition by graph: ``torch.mm`` bf16 and ``torch._int_mm`` at the
+   probe's (2400, 128) x (128, 128), ``F.conv2d`` bf16 on the channels-last
+   band; ``torch._int_mm`` on the residual conv's im2col GEMM is timed as
+   the int8 stages' yardstick (its error is printed in its place if this
+   build refuses the shape).
 4. Prints per-frame times of the kernel path (single, dual, chunk), the plain
    paths, the predictor's time for one and two styles, the int8 and dual int8
    frame, the int8 chunk per frame, calibration a frame and the int8 video
@@ -147,8 +155,13 @@ Run from the repository root: ``python3 chip_smoke.py``.
    loop's host latency.  Last, the shared-memory probe (``ops/probe_smem.py``):
    (a) every size of the sweep up to the card's opt-in cap fills and reads
    back its buffer, and 1 KB above the cap is refused; (b) the fixed tap-matmul
-   workload at 8 and 32 repetitions under each reservation, within 1e-3 of the
-   largest value of its f32 plain version, timed with its blocks per SM.
+   workload under each reservation (a block takes the larger of the
+   reservation and the kernel's own bytes; one at or below its own is marked
+   a no-op), within 1e-3 of the largest value of its f32 plain version at 8,
+   32 and 512 repetitions, two calls bit-equal, timed by graph at 32 and by
+   the median of 5 slopes between 8 and 512 beside the bound a repetition,
+   its blocks per SM and own bytes; ``torch.mm`` bf16 (2400, 384) x (384, 128), the taps'
+   sum in one call, as its yardstick.
    Two calls of one packed frame (one style, two, rst-1920 two) give the same
    bits.
 8. The training step with the CIN kernels (``csrc/cin.cu``, TPU kernel row
@@ -316,6 +329,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -339,6 +353,7 @@ REPACK_PROBE = "tools/probe_repack_ops.py"
 DUAL_REFUSAL = "dual-style is not yet supported on the 3-contract"
 CONV_MATMUL = "realtime_style_transfer_tpu/ops/pallas/conv_matmul.py"
 SMEM_PROBE = "tools/probe_vmem_cap.py"
+SLOPES = 5  # slopes a probe arm's time a repetition is the median of
 CIN_KERNEL = "realtime_style_transfer_tpu/ops/pallas/cin.py"
 
 
@@ -347,6 +362,14 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's max SM clock in MHz, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def cli_phase(note, failures) -> dict:
@@ -1726,8 +1749,8 @@ def main() -> int:
     from realtime_style_transfer_torch.ops import (
         conv_matmul, kernels, probe_int8, probe_repack, probe_smem)
     from realtime_style_transfer_torch.ops.bounds import (
-        PEAK_FLOPS, act_stats_work, bound_ms, cin_work, conv_matmul_launches, conv_matmul_work,
-        conv_stage_work, finish_work, probe_work, repack_work, smem_work)
+        PEAK_FLOPS, act_stats_work, bound_ms, cin_work, clock_bound_ms, conv_matmul_launches,
+        conv_matmul_work, conv_stage_work, finish_work, probe_work, repack_work, smem_work)
     from realtime_style_transfer_torch.ops.conv import pack_transpose_kernel
     from realtime_style_transfer_torch.ops.fused_transfer import FusedTransfer
     from realtime_style_transfer_torch.ops.kernels import (
@@ -2489,38 +2512,107 @@ def main() -> int:
     if failed("phase 3, int8"):
         return 1
 
-    # ---- probe: int8 against bf16 mma.sync at the residual conv's shapes -------------
-    print(f"probe: {PROBE} on Hopper, nrep {probe_int8.NREP}", flush=True)
+    # ---- probe: int8 against bf16 wgmma at the residual conv's shapes -------------
+    p_hi, p_lo, mm_hi = probe_int8.NREP, probe_int8.NREP_LO, probe_int8.NREP_MM_HI
+    mhz, sms = sm_clock_mhz(), torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"probe: {PROBE} on Hopper (wgmma); a repetition's time is the median of {SLOPES} "
+          f"slopes of the graph times at {p_lo} and {p_hi} repetitions (mm: {p_lo} and {mm_hi}), "
+          f"against the bound a repetition at the card's max SM clock, {mhz:.0f} MHz on {sms} "
+          f"SMs; the launch at {p_hi}", flush=True)
+
+    def graph_yardstick(label, fn):
+        """A library call's device time by graph, or why this build refused it."""
+        try:
+            return graph_ms(fn)
+        except RuntimeError as exc:  # a yardstick, not a check: report what refused
+            return f"{label} refused: {str(exc)[:160]}"
+
+    def times(value, count):
+        return value * count if isinstance(value, float) else None
+
+    def slope_stats(call, lo, hi):
+        """SLOPES slopes (graph ms at hi - graph ms at lo) / (hi - lo), the
+        two counts timed in turns: the median and range, and the median
+        graph ms at each count."""
+        los, his = [], []
+        for _ in range(SLOPES):
+            los.append(graph_ms(lambda: call(lo)))
+            his.append(graph_ms(lambda: call(hi)))
+        slopes = sorted((h - l) / (hi - lo) for l, h in zip(los, his))
+        return dict(slope_ms=statistics.median(slopes), slope_range_ms=[slopes[0], slopes[-1]],
+                    lo_ms=statistics.median(los), hi_ms=statistics.median(his),
+                    slope_counts=[lo, hi])
+
+    def rep_bounds(ops_lo, ops_hi, lo, hi, kind):
+        """The bound a repetition at the card's max SM clock and at the
+        published peak, ms."""
+        ops = (ops_hi - ops_lo) / (hi - lo)
+        return clock_bound_ms(ops, kind, sms, mhz), ops / PEAK_FLOPS[kind] * 1e3
+
     probe = {}
     for arm, fn in (("mm", probe_int8.probe_mm), ("band", probe_int8.probe_band)):
+        s_hi = mm_hi if arm == "mm" else p_hi
         for quant in (False, True):
             x_p, w_p, inv_p = probe_int8.make_inputs(arm, quant, dev, SEED)
-            args = (x_p, w_p, probe_int8.NREP) + ((inv_p,) if arm == "band" else ())
+
+            def call(n, fn=fn, x_p=x_p, w_p=w_p, inv_p=inv_p, arm=arm):
+                return fn(x_p, w_p, n, *((inv_p,) if arm == "band" else ()))
+
             fn.launches = 0
-            got = fn(*args)
+            call(p_hi)
             launches_p = fn.launches
-            want = probe_int8.probe_plain(x_p, w_p, probe_int8.NREP, inv_p)
-            torch.cuda.synchronize()
-            err = (got.double() - want).abs().max().item()
-            limit = 0.0 if quant else 2.0 ** -8 * want.abs().max().item()
-            ok = err <= limit
             kind = "int8" if quant else "bf16"
-            ms = cuda_ms(lambda: fn(*args), 20)
-            plain_ms = cuda_ms(lambda: probe_int8.probe_plain(x_p, w_p, probe_int8.NREP, inv_p), 3)
-            ops, n_bytes = probe_work(1 if arm == "mm" else 3, probe_int8.NREP, quant)
+            # every count timed, against float64, and two calls bit-equal
+            err, same, limit, ok = 0.0, True, 0.0, True
+            for n in sorted({p_lo, p_hi, s_hi}):
+                got = call(n)
+                want = probe_int8.probe_plain(x_p, w_p, n, inv_p)
+                same = same and torch.equal(got, call(n))
+                e = (got.double() - want).abs().max().item()
+                lim = 0.0 if quant else 2.0 ** -8 * want.abs().max().item()
+                if e > lim:
+                    ok = False
+                    failures.append(f"probe {arm} {kind} x{n}: max_abs_err {e:.3e} over {lim:.3e}")
+                if n == p_hi:
+                    err, limit = e, lim
+            ok = ok and same
+            events = cuda_ms(lambda: call(p_hi), 20)
+            launch = graph_ms(lambda: call(p_hi))
+            st = slope_stats(call, p_lo, s_hi)
+            slope = st["slope_ms"]
+            plain_ms = cuda_ms(lambda: probe_int8.probe_plain(x_p, w_p, p_hi, inv_p), 3)
+            taps = 1 if arm == "mm" else 3
+            ops, n_bytes = probe_work(taps, p_hi, quant)
             bound, by = bound_ms(ops, n_bytes, kind)
-            tops = ops / ms / 1e9
-            probe[(arm, kind)] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound, by=by,
-                                      tops=tops, launches=launches_p)
-            note(f"probe {arm} {kind}: max_abs_err {err:.3e} (limit {limit:.3e}) "
-                 f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms a launch, {tops:.1f} TOPS, "
-                 f"{tops * 1e12 / PEAK_FLOPS[kind]:.2%} of the dense {kind} peak; plain "
-                 f"float64 {plain_ms:.4f} ms; bound {bound:.4f} ms ({by})")
-            if not ok:
-                failures.append(f"probe {arm} {kind}")
-        ratio = probe[(arm, "int8")]["ms"] / probe[(arm, "bf16")]["ms"]
-        probe[(arm, "ratio")] = ratio
-        note(f"probe {arm}: int8/bf16 time ratio {ratio:.3f}")
+            rep_bound, rep_pub = rep_bounds(probe_work(taps, p_lo, quant)[0],
+                                            probe_work(taps, s_hi, quant)[0], p_lo, s_hi, kind)
+            tops = ops / launch / 1e9
+            probe[(arm, kind)] = dict(err=err, same=same, ms=launch, events_ms=events, **st,
+                                      rep_bound_ms=rep_bound, rep_bound_published_ms=rep_pub,
+                                      rep_share=rep_bound / slope, plain_ms=plain_ms, bound=bound,
+                                      by=by, tops=tops, launches=launches_p)
+            lo_s, hi_s = st["slope_range_ms"]
+            note(f"probe {arm} {kind}: max_abs_err {err:.3e} at x{p_hi} (limit {limit:.3e}; "
+                 f"x{p_lo} and x{s_hi} held too), two calls bit-equal {same}: "
+                 f"{'ok' if ok else 'FAIL'}; graph x{p_lo} {st['lo_ms']:.4f} ms, x{s_hi} "
+                 f"{st['hi_ms']:.4f} ms, slope {slope * 1e3:.4f} us a repetition (range "
+                 f"{lo_s * 1e3:.4f}-{hi_s * 1e3:.4f}) against a bound of {rep_bound * 1e3:.4f} us "
+                 f"at {mhz:.0f} MHz ({rep_bound / slope:.1%}; aim, half of it, "
+                 f"{'met' if slope <= 2 * rep_bound else 'missed'}; {rep_pub * 1e3:.4f} us at the "
+                 f"published {kind} peak); a x{p_hi} launch {launch:.4f} ms graph ({events:.4f} ms "
+                 f"events) against {bound:.4f} ms ({by}), {tops:.1f} TOPS, "
+                 f"{tops * 1e12 / PEAK_FLOPS[kind]:.2%} of the published dense {kind} peak; "
+                 f"plain float64 {plain_ms:.4f} ms")
+            if not same:
+                failures.append(f"probe {arm} {kind}: two calls differ")
+        q, b = probe[(arm, "int8")], probe[(arm, "bf16")]
+        probe[(arm, "ratio")] = q["slope_ms"] / b["slope_ms"]
+        probe[(arm, "ratio_range")] = [q["slope_range_ms"][0] / b["slope_range_ms"][1],
+                                       q["slope_range_ms"][1] / b["slope_range_ms"][0]]
+        probe[(arm, "launch_ratio")] = q["ms"] / b["ms"]
+        note(f"probe {arm}: int8/bf16 ratio {probe[(arm, 'ratio')]:.3f} by slope (the ranges "
+             f"give {probe[(arm, 'ratio_range')][0]:.3f}-{probe[(arm, 'ratio_range')][1]:.3f}), "
+             f"{probe[(arm, 'launch_ratio')]:.3f} by the x{p_hi} launch")
     if failed("probe"):
         return 1
 
@@ -2531,22 +2623,33 @@ def main() -> int:
         except RuntimeError as exc:  # a yardstick, not a check: report what refused
             return f"{label} refused: {str(exc)[:160]}"
 
-    def int_mm_ms(m, k, n):
+    def int_mm_ms(m, k, n, timer=yardstick):
         """torch._int_mm on an (m, k) x (k, n) int8 product, or its error."""
         a = torch.randint(-127, 127, (m, k), dtype=torch.int8, device=dev)
         b = torch.randint(-127, 127, (n, k), dtype=torch.int8, device=dev).t()
-        return yardstick(f"torch._int_mm ({m}, {k}) x ({k}, {n})", lambda: torch._int_mm(a, b))
+        return timer(f"torch._int_mm ({m}, {k}) x ({k}, {n})", lambda: torch._int_mm(a, b))
 
     res_hw = fused.steps[4].stage.in_hw
     lib_res = int_mm_ms(res_hw[0] * res_hw[1], 9 * 128, 128)
-    lib_probe = int_mm_ms(probe_int8.M, 128, 128)
+    # the probes' yardsticks, one library call a repetition, by graph
     xa = torch.randn((probe_int8.M, 128), device=dev).to(bf16)
     wb = torch.randn((128, 128), device=dev).to(bf16)
-    lib_probe_bf16 = cuda_ms(lambda: torch.mm(xa, wb), 20)
+    xband = torch.randn((1, 128, probe_int8.BAND_H + 2, probe_int8.BAND_W), device=dev).to(
+        bf16).contiguous(memory_format=torch.channels_last)
+    wband = torch.randn((128, 128, 3, 3), device=dev).to(bf16).contiguous(
+        memory_format=torch.channels_last)
+    lib_probe = {("mm", "int8"): int_mm_ms(probe_int8.M, 128, 128, graph_yardstick),
+                 ("mm", "bf16"): graph_ms(lambda: torch.mm(xa, wb)),
+                 ("band", "bf16"): graph_ms(lambda: F.conv2d(xband, wband, padding=(0, 1))),
+                 ("band", "int8"): None}
     note(f"library yardsticks: torch._int_mm residual im2col GEMM "
-         f"({res_hw[0] * res_hw[1]} x 1152 x 128, im2col left out): {lib_res}; "
-         f"probe shape (2400 x 128 x 128): {lib_probe}; torch.mm bf16 at the probe shape "
-         f"{lib_probe_bf16:.4f} ms")
+         f"({res_hw[0] * res_hw[1]} x 1152 x 128, im2col left out): {lib_res}; one call a "
+         f"repetition, graph: torch._int_mm (2400 x 128 x 128) {lib_probe[('mm', 'int8')]}, "
+         f"torch.mm bf16 (2400 x 128 x 128) {lib_probe[('mm', 'bf16')]:.4f} ms, F.conv2d bf16 "
+         f"channels-last (1, 128, 12, 240), padding (0, 1) {lib_probe[('band', 'bf16')]:.4f} ms; "
+         f"x{p_hi}: " + ", ".join(f"{a} {k} {times(v, p_hi):.4f} ms"
+                                  for (a, k), v in lib_probe.items()
+                                  if isinstance(v, float)))
 
     # ---- phase 4: end-to-end times -------------------------------------------
     packed = fused.pack_frame_np(frames[0][None]).to(dev)
@@ -3138,32 +3241,57 @@ def main() -> int:
         if not good:
             failures.append(f"smem probe alloc {nb}")
     xw, ww = probe_smem.make_work_inputs(dev, SEED)
+    w_lo, w_hi = probe_smem.REPS
+    ws_hi = probe_smem.REPS_SLOPE_HI
+    ops_w, bytes_w = smem_work(w_hi)
+    bound_w, by_w = bound_ms(ops_w, bytes_w)
+    rep_bound_w, rep_pub_w = rep_bounds(smem_work(w_lo)[0], smem_work(ws_hi)[0], w_lo, ws_hi,
+                                        "bf16")
     work_rows = []
     for nb in [0] + sizes[:-1]:
-        got = probe_smem.work(xw, ww, probe_smem.REPS[0], nb)
-        bps = probe_smem.work.blocks_per_sm
-        want = probe_smem.work_plain(xw, ww, probe_smem.REPS[0])
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = err <= 1e-3 * want.abs().max().item()
-        t_lo = cuda_ms(lambda: probe_smem.work(xw, ww, probe_smem.REPS[0], nb), 20)
-        t_hi = cuda_ms(lambda: probe_smem.work(xw, ww, probe_smem.REPS[1], nb), 20)
-        slope = (t_hi - t_lo) / (probe_smem.REPS[1] - probe_smem.REPS[0])
-        work_rows.append(dict(bytes=nb, blocks_per_sm=bps, err=err, ms_lo=t_lo, ms_hi=t_hi,
-                              slope_ms=slope))
-        note(f"smem probe (b) {nb / 1024:.0f} KB reserved: {bps} blocks/SM, x{probe_smem.REPS[0]} "
-             f"{t_lo:.4f} ms, x{probe_smem.REPS[1]} {t_hi:.4f} ms, slope {slope * 1e3:.3f} us a "
-             f"repetition; max_abs_err {err:.3e} (limit 1e-3 x max) {'ok' if ok else 'FAIL'}")
+        ok, err = True, 0.0
+        for n in (w_lo, w_hi, ws_hi):  # each count, against the f32 plain version, bit-equal
+            got = probe_smem.work(xw, ww, n, nb)
+            want = probe_smem.work_plain(xw, ww, n)
+            same = torch.equal(got, probe_smem.work(xw, ww, n, nb))
+            e = (got - want).abs().max().item()
+            ok = ok and same and e <= 1e-3 * want.abs().max().item()
+            err = max(err, e)
+        bps, own = probe_smem.work.blocks_per_sm, probe_smem.work.own_bytes
+        launch = graph_ms(lambda: probe_smem.work(xw, ww, w_hi, nb))
+        st = slope_stats(lambda n: probe_smem.work(xw, ww, n, nb), w_lo, ws_hi)
+        slope = st["slope_ms"]
+        work_rows.append(dict(bytes=nb, block_bytes=max(nb, own), own_bytes=own,
+                              no_op=nb <= own, blocks_per_sm=bps, err=err, same=ok,
+                              ms=launch, ms_lo=st["lo_ms"], ms_slope_hi=st["hi_ms"],
+                              slope_ms=slope, slope_range_ms=st["slope_range_ms"],
+                              rep_share=rep_bound_w / slope))
+        lo_s, hi_s = st["slope_range_ms"]
+        note(f"smem probe (b) {nb / 1024:.0f} KB reserved (a block takes {max(nb, own)} bytes, "
+             f"the kernel's own {own}{': a no-op' if nb <= own else ''}): {bps} blocks/SM, graph "
+             f"x{w_hi} {launch:.4f} ms; x{w_lo} {st['lo_ms']:.4f} ms, x{ws_hi} {st['hi_ms']:.4f} "
+             f"ms, slope {slope * 1e3:.4f} us a repetition (range {lo_s * 1e3:.4f}-"
+             f"{hi_s * 1e3:.4f}) against a bound of {rep_bound_w * 1e3:.4f} us at {mhz:.0f} MHz "
+             f"({rep_bound_w / slope:.1%}; {rep_pub_w * 1e3:.4f} us at the published peak); "
+             f"max_abs_err {err:.3e} at x{w_lo}, x{w_hi} and x{ws_hi} (limit 1e-3 x max), two "
+             f"calls bit-equal: {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"smem probe work {nb}")
-    work_plain_ms = cuda_ms(lambda: probe_smem.work_plain(xw, ww, probe_smem.REPS[1]), 5)
-    ops_w, bytes_w = smem_work(probe_smem.REPS[1])
-    bound_w, by_w = bound_ms(ops_w, bytes_w)
+    work_plain_ms = cuda_ms(lambda: probe_smem.work_plain(xw, ww, w_hi), 5)
+    x3 = xw.repeat(1, probe_smem.TAPS)  # (2400, 384): [x, x, x]
+    w3 = ww.reshape(probe_smem.TAPS * probe_smem.C, probe_smem.C)  # (384, 128): the taps stacked
+    lib_work = graph_ms(lambda: torch.mm(x3, w3))
     base = work_rows[0]
-    note(f"smem probe (b): the slowest reservation takes "
-         f"{max(r['ms_hi'] for r in work_rows) / base['ms_hi']:.3f}x the unreserved x"
-         f"{probe_smem.REPS[1]} launch; the bound of one x{probe_smem.REPS[1]} launch "
-         f"{bound_w:.4f} ms ({by_w}), plain f32 {work_plain_ms:.4f} ms")
+    raised = [r for r in work_rows if not r["no_op"]]
+    note(f"smem probe (b): of the {len(raised)} reservations above the kernel's own "
+         f"{base['own_bytes']} bytes, the slowest x{w_hi} launch takes "
+         f"{max(r['ms'] for r in raised) / base['ms']:.3f}x the unreserved one "
+         f"({base['ms']:.4f} ms graph) and the slopes range "
+         f"{min(r['slope_ms'] for r in raised) / base['slope_ms']:.3f}-"
+         f"{max(r['slope_ms'] for r in raised) / base['slope_ms']:.3f}x its slope; the bound of "
+         f"one x{w_hi} launch {bound_w:.4f} ms ({by_w}), plain f32 {work_plain_ms:.4f} ms; "
+         f"torch.mm bf16 (2400 x 384) x (384 x 128), the sum of the taps in one call, "
+         f"{lib_work:.4f} ms graph, x{w_hi} {lib_work * w_hi:.4f} ms")
     if failed("phase 7, probe"):
         return 1
     note(f"phase 7 total: {time.perf_counter() - t7:.1f} s")
@@ -3614,17 +3742,40 @@ def main() -> int:
 
     def probe_entry(arm, line):
         q, b = probe[(arm, "int8")], probe[(arm, "bf16")]
+        hi = q["slope_counts"][1]
+        lib_q, lib_b = lib_probe[(arm, "int8")], lib_probe[(arm, "bf16")]
         return {"name": f"probe_int8_{arm}", "route": "cuda",
                 "source": f"{SOURCES}/probe_int8.cu", "replaces": f"{PROBE}:{line}",
+                "per": f"one x{p_hi} int8 launch by graph; slope: the median of {SLOPES} "
+                       f"(graph x{hi} - graph x{p_lo}) / {hi - p_lo}, a repetition, its bound "
+                       f"at the card's max SM clock",
                 "launches": q["launches"], "max_abs_err": q["err"], "ms": q["ms"],
-                "plain_ms": q["plain_ms"], "bound_ms": q["bound"], "bound_by": q["by"],
-                "library_ms": (lib_probe * probe_int8.NREP if isinstance(lib_probe, float)
-                               else None) if arm == "mm" else None,
-                "library_note": ("torch._int_mm of one product x nrep" if arm == "mm"
-                                 else "no library call computes the band pattern"),
+                "events_ms": q["events_ms"], "lo_ms": q["lo_ms"], "hi_ms": q["hi_ms"],
+                "slope_counts": q["slope_counts"], "slope_ms": q["slope_ms"],
+                "slope_range_ms": q["slope_range_ms"], "rep_bound_ms": q["rep_bound_ms"],
+                "rep_bound_published_ms": q["rep_bound_published_ms"],
+                "rep_share": q["rep_share"], "sm_clock_mhz": mhz,
+                "bit_equal": q["same"], "plain_ms": q["plain_ms"], "bound_ms": q["bound"],
+                "bound_by": q["by"], "library_ms": times(lib_q, p_hi),
+                "library_note": ("torch._int_mm of one product, by graph, x nrep"
+                                 if arm == "mm" else
+                                 "none: F.conv2d takes no int8 tensors on CUDA and "
+                                 "torch._int_mm needs the band's im2col first"),
                 "tops": q["tops"], "bf16_launches": b["launches"], "bf16_max_abs_err": b["err"],
-                "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_bound_ms": b["bound"],
-                "bf16_tops": b["tops"], "int8_bf16_ratio": probe[(arm, "ratio")]}
+                "bf16_ms": b["ms"], "bf16_events_ms": b["events_ms"], "bf16_lo_ms": b["lo_ms"],
+                "bf16_hi_ms": b["hi_ms"], "bf16_slope_ms": b["slope_ms"],
+                "bf16_slope_range_ms": b["slope_range_ms"], "bf16_rep_bound_ms": b["rep_bound_ms"],
+                "bf16_rep_share": b["rep_share"], "bf16_bit_equal": b["same"],
+                "bf16_plain_ms": b["plain_ms"], "bf16_bound_ms": b["bound"],
+                "bf16_library_ms": times(lib_b, p_hi),
+                "bf16_library_note": ("torch.mm bf16 (2400, 128) x (128, 128), by graph, x nrep"
+                                      if arm == "mm" else
+                                      "F.conv2d bf16 channels-last (1, 128, 12, 240), padding "
+                                      "(0, 1), by graph, x nrep"),
+                "bf16_tops": b["tops"], "int8_bf16_ratio": probe[(arm, "ratio")],
+                "int8_bf16_ratio_range": probe[(arm, "ratio_range")],
+                "int8_bf16_launch_ratio": probe[(arm, "launch_ratio")]}
+
     def halo_entry():
         """The halo path's launches of one rst960 frame (res0a, res0b..res4b,
         e0, e1), summed, bf16 single style; dual, int8 and rst1920 beside."""
@@ -3819,10 +3970,17 @@ def main() -> int:
         {"name": "probe_smem", "route": "cuda", "source": f"{SOURCES}/probe_smem.cu",
          "replaces": f"{SMEM_PROBE}:73",
          "launches": probe_smem.try_alloc.launches + probe_smem.work.launches,
-         "max_abs_err": max(r["err"] for r in work_rows), "ms": base["ms_hi"],
-         "plain_ms": work_plain_ms, "bound_ms": bound_w, "bound_by": by_w, "library_ms": None,
-         "per": f"one x{probe_smem.REPS[1]} work launch, no reservation",
-         "library_note": "no one PyTorch call computes the repeated tap sum",
+         "max_abs_err": max(r["err"] for r in work_rows), "ms": base["ms"],
+         "plain_ms": work_plain_ms, "bound_ms": bound_w, "bound_by": by_w,
+         "library_ms": lib_work * w_hi,
+         "per": f"one x{w_hi} work launch by graph, no reservation; slope: the median of "
+                f"{SLOPES} (graph x{ws_hi} - graph x{w_lo}) / {ws_hi - w_lo}, a repetition, its "
+                f"bound at the card's max SM clock",
+         "slope_ms": base["slope_ms"], "slope_range_ms": base["slope_range_ms"],
+         "rep_bound_ms": rep_bound_w, "rep_bound_published_ms": rep_pub_w,
+         "rep_share": base["rep_share"], "sm_clock_mhz": mhz, "own_bytes": base["own_bytes"],
+         "library_note": "torch.mm bf16 (2400, 384) x (384, 128), the three taps' sum in one "
+                         "call, by graph, x reps",
          "optin_bytes": optin, "alloc": smem_rows, "work": work_rows,
          "also_replaces": f"{SMEM_PROBE}:119"},
         {"name": "cin", "route": "cuda", "source": f"{SOURCES}/cin.cu",

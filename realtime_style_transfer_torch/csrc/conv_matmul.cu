@@ -96,10 +96,9 @@
 //           of the loop (measured: PERF.md).
 //   after   the sums of the K-groups, the epilogue, float4 stores.
 // "// PROFILE LAP i" marks the phases of conv_fma_kernel as well.
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -135,102 +134,16 @@ struct Params {
   int th, tw;    // input tile rows and columns
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Makes this thread's generic-proxy writes to shared memory (stores) visible to the async proxy, through which wgmma reads them.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // The two consumer warpgroups only: the producer warps have left.
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+// hopper.cuh's mbar_init without its fence: the kernels fence once after
+// all their barriers.
+__device__ __forceinline__ void mbar_init_unfenced(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of `parity` to complete.  A wait that never ends (a
-// broken pipeline) traps, so the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (int i = 0; !mbar_try(bar, parity); ++i)
-    if (i == (1 << 24)) __trap();
-}
-
-// TMA bulk copy of `bytes` contiguous bytes global -> shared, completing on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// One plane of an input chunk by TMA: the box at (plane, column x, row y)
-// of the input's 4-d tensor map (the bf16 path's: 8 channels of one plane,
-// tw columns, th rows; the f32 path's: the CC channels of one chunk, 16 +
-// kw - 1 columns, TM / 2 rows), zero-filled outside the image, completing
-// on bar.
-__device__ __forceinline__ void tma_plane(void* dst, const CUtensorMap* map, int plane, int x,
-                                          int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(plane), "r"(x),
-        "r"(y), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor without swizzle: start address, LBO (the
-// next core matrix along K) and SBO (the next 8 rows), all in 16 bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses to v across an in-flight wgmma.
-template <int N>
-__device__ __forceinline__ void fence_operand(float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
 }
 
 // One wgmma of the warpgroup, both operands in shared memory: the 64 x 16
@@ -450,12 +363,12 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
 
   if (tid == 0) {
     for (int i = 0; i < RING; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CWARPS);
+      mbar_init_unfenced(&full[i], 1);
+      mbar_init_unfenced(&empty[i], CWARPS);
     }
     for (int i = 0; i < 2; ++i) {
-      mbar_init(&chunk_full[i], 1);
-      mbar_init(&chunk_empty[i], CWARPS);
+      mbar_init_unfenced(&chunk_full[i], 1);
+      mbar_init_unfenced(&chunk_empty[i], CWARPS);
     }
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -468,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
       const unsigned char* w = p.slices + (size_t)blockIdx.y * p.nk * BN * SLICE_BYTES;
       for (int kt = 0; kt < p.nk; ++kt) {
         const int s = kt % RING;
-        mbar_wait(&empty[s], ((kt / RING) & 1) ^ 1);
+        mbar_wait_or_trap(&empty[s], ((kt / RING) & 1) ^ 1);
         mbar_expect_tx(&full[s], BN * SLICE_BYTES);
         bulk_copy(ring + s * (BN * SLICE_BYTES), w + (size_t)kt * BN * SLICE_BYTES,
                   BN * SLICE_BYTES, &full[s]);
@@ -482,7 +395,7 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
     if (lane == 0)
       for (int c = 0; c < p.nchunks; ++c) {
         const int b = c % p.nbuf, p0 = c * p.cp, pc = min(p.cp, planes - p0);
-        mbar_wait(&chunk_empty[b], ((c / p.nbuf) & 1) ^ 1);
+        mbar_wait_or_trap(&chunk_empty[b], ((c / p.nbuf) & 1) ^ 1);
         mbar_expect_tx(&chunk_full[b], pc * npix * 16);
         for (int u = 0; u < pc; ++u)
           tma_plane(dyn + b * chunk_bytes + u * p.plane_px * 16, &map, p0 + u, ox0, oy0,
@@ -499,7 +412,7 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
   // PROFILE LAP 0
   fence_proxy_async();  // the zero pixels to the async proxy
   consumer_sync();
-  mbar_wait(&chunk_full[0], 0);
+  mbar_wait_or_trap(&chunk_full[0], 0);
   // PROFILE LAP 1
 
   // Warpgroup v holds m64 tiles v*RW .. v*RW + RW - 1 of the block; tile i
@@ -529,21 +442,21 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
     const bool first = kt == 0 || ((word[0] >> STEP_NEW_CHUNK) & 1);
     if (kt > 0 && first) {
       ++chunk;
-      mbar_wait(&chunk_full[chunk % p.nbuf], (chunk / p.nbuf) & 1);
+      mbar_wait_or_trap(&chunk_full[chunk % p.nbuf], (chunk / p.nbuf) & 1);
     }
     const uint32_t a_base = dyn_base + (chunk % p.nbuf) * chunk_bytes;
-    mbar_wait(&full[kt % RING], (kt / RING) & 1);
+    mbar_wait_or_trap(&full[kt % RING], (kt / RING) & 1);
     const uint32_t b_base = ring_base + (kt % RING) * (BN * SLICE_BYTES);
 #pragma unroll
-    for (int r = 0; r < RW; ++r) fence_operand(acc[r]);
+    for (int r = 0; r < RW; ++r) wgmma_fence_operand(acc[r]);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      const uint64_t b = desc(b_base + ks * 256, 128, SLICE_BYTES * 8);
+      const uint64_t b = wgmma_desc(b_base + ks * 256, 128, SLICE_BYTES * 8);
       const uint32_t a = a_base + (word[ks] & STEP_FIELD) * 16;
       const uint32_t lbo = ((word[ks] >> 14) & STEP_FIELD) * 16;
 #pragma unroll
-      for (int r = 0; r < RW; ++r) WgmmaSS<BN>::mma(acc[r], desc(a + toff[r], lbo, sbo), b);
+      for (int r = 0; r < RW; ++r) WgmmaSS<BN>::mma(acc[r], wgmma_desc(a + toff[r], lbo, sbo), b);
     }
     wgmma_commit();
     if (kt + 1 < p.nk)
@@ -558,7 +471,7 @@ __global__ void __launch_bounds__(THREADS, RW * BN <= 128 ? 2 : 1)
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int r = 0; r < RW; ++r) fence_operand(acc[r]);
+  for (int r = 0; r < RW; ++r) wgmma_fence_operand(acc[r]);
   // PROFILE LAP 2
   consumer_sync();  // every warp is done with the chunks and the ring
 
@@ -707,8 +620,8 @@ __global__ void __launch_bounds__(FMA_THREADS, 1)
 
   if (tid == 0) {
     for (int i = 0; i < FMA_MAX_BUF; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], FMA_WARPS);
+      mbar_init_unfenced(&full[i], 1);
+      mbar_init_unfenced(&empty[i], FMA_WARPS);
     }
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -722,7 +635,7 @@ __global__ void __launch_bounds__(FMA_THREADS, 1)
       for (int s = 0; s < nst; ++s) {
         const int b = s % p.nbuf, c = s / p.kh;
         unsigned char* st = dyn + b * stage_bytes;
-        mbar_wait(&empty[b], ((s / p.nbuf) & 1) ^ 1);
+        mbar_wait_or_trap(&empty[b], ((s / p.nbuf) & 1) ^ 1);
         mbar_expect_tx(&full[b], R * twc * p.cc * 4 + w_floats * 4);
         tma_plane(st, &map, c, ox0, oy0 + s - c * p.kh, &full[b]);
         bulk_copy(st + in_bytes, wsl + (size_t)s * w_floats, w_floats * 4, &full[b]);
@@ -742,12 +655,12 @@ __global__ void __launch_bounds__(FMA_THREADS, 1)
   for (int j = 0; j < TM; ++j)
 #pragma unroll
     for (int q = 0; q < TQ; ++q) acc[j][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  mbar_wait(&full[0], 0);
+  mbar_wait_or_trap(&full[0], 0);
   // PROFILE LAP 0
 
   for (int s = 0; s < nst; ++s) {
     const int b = s % p.nbuf;
-    mbar_wait(&full[b], (s / p.nbuf) & 1);
+    mbar_wait_or_trap(&full[b], (s / p.nbuf) & 1);
     const float* in =
         reinterpret_cast<const float*>(dyn + b * stage_bytes) + (r * twc + c0) * p.cc + 4 * g;
     const float* wt = reinterpret_cast<const float*>(dyn + b * stage_bytes + in_bytes) + 4 * lane;
@@ -843,7 +756,6 @@ cudaError_t launch_wgmma(const Params& p, const CUtensorMap& map, cudaStream_t s
   return cudaGetLastError();
 }
 
-
 // The f32 path's launch: the (bn, tm) instantiations ops/conv_matmul.py's
 // FMA_TILES picks from, with the windows of FMA_WINDOWS.
 template <int TM, int TQ, int NG, int KW>
@@ -863,19 +775,6 @@ cudaError_t launch_fma(const FmaParams& p, const CUtensorMap& map, cudaStream_t 
   const dim3 grid(((p.h + R - 1) / R) * ((p.w + FMA_COLS - 1) / FMA_COLS), (p.cout + BN - 1) / BN);
   conv_fma_kernel<TM, TQ, NG, KW><<<grid, FMA_THREADS, bytes, s>>>(p, map);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up once through its entry point.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      encode = nullptr;
-  }
-  return encode;
 }
 
 }  // namespace

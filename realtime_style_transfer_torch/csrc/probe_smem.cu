@@ -13,22 +13,30 @@
 //   fill the whole buffer with a per-block pattern and read it back in
 //   another thread order; out[b] is the XOR of block b's words.  A size above
 //   the opt-in cap is refused by cudaFuncSetAttribute or at launch.
-// mode 1 (work): the TPU probe's workload, (2400, 128) bf16 @ 3 x (128, 128)
-//   bf16 tap matmuls accumulated in f32, `reps` times, one warp a 16-row
-//   block (150 blocks), launched with `bytes` of dynamic shared memory
-//   reserved and unused.  The reservation can cost time only through
-//   occupancy (blocks per SM) and the L1 carve-out; info reports the former.
-//   Bound: operations (2 * 2400 * 128 * 128 * 3 per repetition).
+// mode 1 (work): the TPU probe's workload, reps times sum_t x @ w[t], x
+//   (2400, 128) bf16, w (3, 128 k, 128 n) bf16, f32 sums: probe_rep.cuh's
+//   kernel (the design note is probe_int8.cu's), its three taps' weights
+//   read transposed into registers (ldmatrix.trans), the same x tile the B
+//   operand of every tap; one cooperative launch of one block an SM over
+//   (tile, repetition) units, partials added in a fixed order.  A block
+//   takes max(own, `bytes`) of shared memory, own being what the kernel uses
+//   (its 96 KB of dynamic, the weights' staging that the x tiles reuse, and
+//   its few static bytes), so a reservation is a cap raised over the
+//   kernel's own use, as the TPU probe's vmem_limit_bytes was, and one at or
+//   below own changes nothing; it can cost time only through blocks per SM
+//   (info) and the L1 carve-out.  Bound:
+//   operations (2 * 2400 * 128 * 128 * 3 a repetition, 0.2385 us of bf16
+//   tensor-core time); the probe reads the time a repetition from two
+//   repetition counts.
 //
-// info (host int[3]): the opt-in cap in bytes, blocks per SM at `bytes`, and
-// the SM count.
-#include "stage_common.cuh"
+// info (host int[4]): the opt-in cap in bytes, blocks per SM at the launched
+// bytes, the SM count, and the work kernel's own bytes (static and dynamic).
+#include "probe_rep.cuh"
 
 namespace {
 
 constexpr int FILL_THREADS = 256;
-constexpr int C = 128;  // K and N of the work products
-constexpr int TAPS = 3;
+constexpr int TAPS = 3;  // the work arm's taps
 
 __device__ __forceinline__ uint32_t pattern(uint32_t i, uint32_t b) {
   return i * 2654435761u + b;
@@ -43,42 +51,6 @@ __global__ void __launch_bounds__(FILL_THREADS) fill_kernel(uint32_t* out, int w
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) atomicXor(out + blockIdx.x, v);
-}
-
-// x: (m, 128) bf16 row-major; wt: (3, 128 n, 128 k) bf16 (each tap's weights
-// transposed, so a B fragment's k pair is one 32-bit load); out: (m, 128) f32.
-__global__ void __launch_bounds__(32) work_kernel(const __nv_bfloat16* __restrict__ x,
-                                                  const __nv_bfloat16* __restrict__ wt,
-                                                  float* __restrict__ out, int reps) {
-  const int lane = threadIdx.x, g = lane >> 2, t4 = lane & 3;
-  const __nv_bfloat16* xa = x + ((size_t)blockIdx.x * 16 + g) * C + 2 * t4;
-  float acc[C / 8][4];
-#pragma unroll
-  for (int i = 0; i < C / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int rep = 0; rep < reps; ++rep)
-    for (int tap = 0; tap < TAPS; ++tap)
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(xa + k0);
-        a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * C + k0);
-        a[2] = *reinterpret_cast<const uint32_t*>(xa + k0 + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * C + k0 + 8);
-#pragma unroll
-        for (int nt = 0; nt < C / 8; ++nt) {
-          const __nv_bfloat16* b = wt + ((size_t)tap * C + nt * 8 + g) * C + k0 + 2 * t4;
-          mma16816(acc[nt], a, *reinterpret_cast<const uint32_t*>(b),
-                   *reinterpret_cast<const uint32_t*>(b + 8));
-        }
-      }
-#pragma unroll
-  for (int nt = 0; nt < C / 8; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* o = out + ((size_t)blockIdx.x * 16 + g + 8 * h) * C + nt * 8 + 2 * t4;
-      o[0] = acc[nt][2 * h];
-      o[1] = acc[nt][2 * h + 1];
-    }
 }
 
 template <typename K>
@@ -99,28 +71,52 @@ cudaError_t reserve(K kernel, int bytes, int threads, int* info) {
 
 }  // namespace
 
-// mode 0: out (blocks,) uint32, zeroed by the caller; x, w unused.
-// mode 1: x (m, 128) bf16 with m = 16 * blocks, w (3, 128, 128) bf16
-// transposed per tap, out (m, 128) f32.
-extern "C" int rst_probe_smem(int mode, int bytes, int blocks, int reps, const void* x,
-                              const void* w, void* out, void* info, void* stream) {
+// mode 0: out (blocks,) uint32, zeroed by the caller; rows, x, w, partials
+// unused.  mode 1: x (rows, 128) bf16, w (3, 128, 128) bf16 (tap, k, n), out
+// (rows, 128) f32, partials ops/probe_smem.py work_plan's slots x 16384
+// floats, blocks the plan's.
+extern "C" int rst_probe_smem(int mode, int bytes, int blocks, int reps, int rows,
+                              const void* x, const void* w, void* out, void* partials,
+                              void* info, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* inf = static_cast<int*>(info);
-  inf[0] = inf[1] = inf[2] = 0;
-  if (bytes < 0 || blocks < 1 || (mode == 1 && reps < 1) || (mode != 0 && mode != 1))
+  inf[0] = inf[1] = inf[2] = inf[3] = 0;
+  if (bytes < 0 || blocks < 1 || (mode == 1 && (reps < 1 || rows < 1)) ||
+      (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (mode == 0) {
     err = reserve(fill_kernel, bytes, FILL_THREADS, inf);
     if (err != cudaSuccess) return static_cast<int>(err);
     fill_kernel<<<blocks, FILL_THREADS, bytes, s>>>(static_cast<uint32_t*>(out), bytes / 4);
-  } else {
-    err = reserve(work_kernel, bytes, 32, inf);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    work_kernel<<<blocks, 32, bytes, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                          static_cast<const __nv_bfloat16*>(w),
-                                          static_cast<float*>(out), reps);
+    return static_cast<int>(cudaGetLastError());
   }
-  err = cudaGetLastError();
-  return static_cast<int>(err);
+  // a block's shared memory is the kernel's static bytes (its mbarriers)
+  // and the dynamic bytes launched: own = static + RepLayout's bytes, and a
+  // reservation of `bytes` launches max(own, bytes) - static dynamic bytes
+  auto kernel = probe_rep_kernel<false, REP_MM, TAPS, true>;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int stat = static_cast<int>(attr.sharedSizeBytes);
+  inf[3] = stat + RepLayout<false, REP_MM, TAPS>::BYTES;
+  const int launched = (bytes > inf[3] ? bytes : inf[3]) - stat;
+  err = reserve(kernel, launched, REP_THREADS, inf);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RepParams p;
+  p.out = out;
+  p.partials = partials;
+  p.act_inv = nullptr;
+  p.counters = nullptr;
+  p.width = rows;
+  p.nrep = reps;
+  p.tiles_x = p.groups = (rows + REP_TILE - 1) / REP_TILE;
+  p.bpp = blocks;
+  CUtensorMap xmap, wmap;
+  if ((long long)blocks > (long long)p.groups * reps ||
+      !rep_plane_map(&xmap, false, x, 16, rows, 1, REP_TILE) ||
+      !rep_plane_map(&wmap, false, w, 16, TAPS * REP_C, 1, REP_C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_rep<false, REP_MM, TAPS, true>(p, xmap, wmap, blocks, launched, s));
 }

@@ -1,6 +1,6 @@
-// Device code shared by conv_stage.cu, act_stats.cu and probe_int8.cu: the
-// CIN fold (act_stats.cu), the consumer prologue on 8 channels, the int8
-// quantize and the tensor-core MMAs.  Every rounding point is explicit (__fmul_rn, __fadd_rn,
+// Device code shared by conv_stage.cu and act_stats.cu: the CIN fold
+// (act_stats.cu), the consumer prologue on 8 channels, the int8 quantize and
+// the tensor-core MMAs.  Every rounding point is explicit (__fmul_rn, __fadd_rn,
 // __float2int_rn), so the plain PyTorch versions in ops/kernels.py, which
 // round after each operation in the same order, give the same bits.
 #pragma once

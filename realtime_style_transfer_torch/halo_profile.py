@@ -2,8 +2,8 @@
 
     python -m realtime_style_transfer_torch.halo_profile [--parts P,...] [ROOT ...]
 
-``--parts`` picks some of ``cin``, ``finish``, ``act_stats``, ``stages`` and
-``matmul`` (all by default), run in that order.
+``--parts`` picks some of ``cin``, ``finish``, ``act_stats``, ``stages``,
+``matmul`` and ``probe`` (all by default), run in that order.
 
 First ``cin`` (``csrc/cin.cu``) at the training step's (4, 120, 240, 128),
 bf16 and f32: the forward (each tree's ``cin``) and the backward (each tree's
@@ -55,8 +55,16 @@ as it is; f32: each ROOT's largest difference from this kernel) and
 ``conv_backend="pallas"``) of rst-960 with one style and rst-1920 with two,
 each ROOT's engine and this one's on the same seeded variables, in turns
 ROOT, this, this, ROOT (CUDA events, the median of 5 windows of 20 frames),
-and each engine's device busy time a frame (``torch.profiler``).  Needs one
-CUDA device, ``nvcc`` and ``nvidia-smi``.
+and each engine's device busy time a frame (``torch.profiler``).
+
+Last, the matmul probes (``probe``): the int8 probe's mm and band arms, bf16
+and int8, a launch at 64 repetitions and the slope between 16 and 64 (mm
+1024), and the shared-memory probe's work arm, a launch at 32 and the slope
+between 8 and 512, by graph replay beside each ROOT's own wrappers (its own
+build of ``probe_int8.cu`` and ``probe_smem.cu``) on the same seeded inputs, every output held against the plain version
+(the command exits 1 otherwise) and each ROOT's against this one's, and the
+phases of a block of ``probe_rep.cuh``'s kernel (``// PROFILE LAP i``).
+Needs one CUDA device, ``nvcc`` and ``nvidia-smi``.
 """
 
 from __future__ import annotations
@@ -99,6 +107,8 @@ MATMUL_PHASES = {
 PASS_PHASES = {"act_stats_kernel": ("copies + fold", "stream", "flush")}
 # the same for cin.cu's kernel (forward and backward)
 CIN_PHASES = {"cin_kernel": ("loads + sums", "grid barrier", "fold", "stores")}
+# the same for the probes' kernel (probe_rep.cuh), from a consumer thread
+PROBE_PHASES = {"probe_rep_kernel": ("set-up", "repetitions", "grid barrier", "reduce")}
 # the packed path's conv_matmul launches (bounds.conv_matmul_launches) and frames
 MATMUL_SPECS = ("rst-960-120-128-17", "rst-1920-120-128-17")
 FRAMES = (("rst-960-120-128-17", 1), ("rst-1920-120-128-17", 2))
@@ -107,7 +117,7 @@ FINISH_FRAMES = (("rst-960", (480, 960)), ("rst-1920", (960, 1920)))
 STATS_FRAMES = (("rst-960-120-128-17", 1), ("rst-960-120-128-17", 2), ("rst-1920-120-128-17", 1))
 # the training step's residual CIN activation
 CIN_SHAPE = (4, 120, 240, 128)
-PARTS = ("cin", "finish", "act_stats", "stages", "matmul")
+PARTS = ("cin", "finish", "act_stats", "stages", "matmul", "probe")
 # label, path, kernel (kh, kw, cin, cout), input grid, pack input, prologue
 CASES = (
     ("stem", "window", (9, 9, 17, 32), (480, 960), True, False),
@@ -139,12 +149,13 @@ def _kernel_span(text: str, name: str):
 
 
 def profiled_source(text: str) -> str:
-    """A kernel source (conv_stage.cu, conv_matmul.cu, act_stats.cu, cin.cu)
-    with clock64 counters in each of its kernels in PHASES, MATMUL_PHASES,
-    PASS_PHASES or CIN_PHASES: its ``// PROFILE LAP
+    """A kernel source (conv_stage.cu, conv_matmul.cu, act_stats.cu, cin.cu,
+    probe_rep.cuh) with clock64 counters in each of its kernels in PHASES,
+    MATMUL_PHASES, PASS_PHASES, CIN_PHASES or PROBE_PHASES: its ``// PROFILE LAP
     i`` markers, in order i = 0, 1, ..., close counter i; each block's thread
     0 writes them to ``Params::counters``, 8 a block."""
-    for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES, **CIN_PHASES}.items():
+    for name, phases in {**PHASES, **MATMUL_PHASES, **PASS_PHASES, **CIN_PHASES,
+                         **PROBE_PHASES}.items():
         if _signature(text, name) is None:
             continue
         start, end = _kernel_span(text, name)
@@ -707,6 +718,94 @@ def cin_part(others, prof=None, mhz: float = 1.0) -> list:
     return bad
 
 
+def _build_probe() -> ctypes.CDLL:
+    """``probe_int8.cu`` on a copy of ``probe_rep.cuh`` with clock64 counters
+    (the source includes the header from its own directory first)."""
+    d = kernels.BUILD_DIR / "halo_profile_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "probe_rep.cuh").write_text(profiled_source((kernels.CSRC / "probe_rep.cuh").read_text()))
+    (d / "probe_int8.cu").write_text((kernels.CSRC / "probe_int8.cu").read_text())
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
+                    str(d / "probe_int8.so"), str(d / "probe_int8.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(d / "probe_int8.so"))
+    lib.rst_probe.argtypes = _ARGTYPES["rst_probe"]
+    lib.rst_probe.restype = ctypes.c_int
+    return lib
+
+
+def probe_part(prof, others, mhz: float) -> list:
+    """The two matmul probes' arms (the int8 probe's mm and band, bf16 and
+    int8, a launch at NREP repetitions and the slope between NREP_LO and NREP,
+    mm NREP_MM_HI; the shared-memory probe's work arm, no reservation, a
+    launch at REPS[1] and the slope between REPS[0] and REPS_SLOPE_HI) by
+    graph replay beside each ROOT's own wrappers on the same seeded inputs;
+    each output at the launch's count against the plain version (int8
+    exactly, bf16 within 2^-8 of the largest value, the work arm 1e-3) and
+    each ROOT's output against this one's; then the phases of a block of
+    this build's kernel."""
+    from .ops import probe_int8 as pi
+    from .ops import probe_smem as ps
+    from .ops.probe_rep import rep_plan
+
+    mods = {name: (importlib.import_module(k.__name__.rsplit(".", 2)[0] + ".ops.probe_int8"),
+                   importlib.import_module(k.__name__.rsplit(".", 2)[0] + ".ops.probe_smem"))
+            for name, k in others.items()}
+    dev, bad = torch.device("cuda"), []
+    lo, hi = pi.NREP_LO, pi.NREP
+    for arm in ("mm", "band"):
+        s_hi = pi.NREP_MM_HI if arm == "mm" else hi
+        for quant in (False, True):
+            x, w, inv = pi.make_inputs(arm, quant, dev, seed=0)
+            kind = "int8" if quant else "bf16"
+            fns = {"this": pi.probe_mm if arm == "mm" else pi.probe_band}
+            fns.update({name: m[0].probe_mm if arm == "mm" else m[0].probe_band
+                        for name, m in mods.items()})
+            extra = (inv,) if arm == "band" else ()
+            want = pi.probe_plain(x, w, hi, inv)
+            limit = 0.0 if quant else 2.0 ** -8 * want.abs().max().item()
+            mine = fns["this"](x, w, hi, *extra)
+            row = [f"probe {arm} {kind}:"]
+            for name, fn in fns.items():
+                got = mine if name == "this" else fn(x, w, hi, *extra)
+                err = (got.double() - want).abs().max().item()
+                diff = (got.double() - mine.double()).abs().max().item()
+                if err > limit:
+                    bad.append(f"probe {arm} {kind} {name}")
+                g = {n: graph_ms(lambda fn=fn, n=n: fn(x, w, n, *extra)) for n in {lo, hi, s_hi}}
+                row.append(f"{name} x{hi} {g[hi]:.4f} ms; x{lo} {g[lo]:.4f}, x{s_hi} "
+                           f"{g[s_hi]:.4f} ms, slope {(g[s_hi] - g[lo]) / (s_hi - lo) * 1e3:.4f} "
+                           f"us (max_abs_err {err:.3e}, limit {limit:.3e}; from this build "
+                           f"{diff:.3e})")
+            print("  ".join(row), flush=True)
+            plan = rep_plan(arm, hi, quant, sms=kernels._sm_count(dev))
+            counters = torch.zeros(plan.blocks * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                counters.zero_()
+                pi.launch_probe(prof, x, w, hi, inv, 1 if arm == "mm" else 3, counters)
+            torch.cuda.synchronize()
+            print(f"  probe {arm} {kind} x{hi}: " + _phases(counters, PROBE_PHASES["probe_rep_kernel"],
+                                                           mhz), flush=True)
+    x, w = ps.make_work_inputs(dev, seed=0)
+    lo_w, hi_w = ps.REPS
+    s_hi = ps.REPS_SLOPE_HI
+    want = ps.work_plain(x, w, hi_w)
+    mine = ps.work(x, w, hi_w)
+    row = ["probe_smem work (no reservation):"]
+    for name, fn in {"this": ps.work, **{n: m[1].work for n, m in mods.items()}}.items():
+        got = mine if name == "this" else fn(x, w, hi_w)
+        err = (got - want).abs().max().item()
+        if err > 1e-3 * want.abs().max().item():
+            bad.append(f"probe_smem work {name}")
+        g = {n: graph_ms(lambda fn=fn, n=n: fn(x, w, n)) for n in (lo_w, hi_w, s_hi)}
+        row.append(f"{name} x{hi_w} {g[hi_w]:.4f} ms; x{lo_w} {g[lo_w]:.4f}, x{s_hi} "
+                   f"{g[s_hi]:.4f} ms, slope {(g[s_hi] - g[lo_w]) / (s_hi - lo_w) * 1e3:.4f} us "
+                   f"(max_abs_err {err:.3e}; from this build "
+                   f"{(got - mine).abs().max().item():.3e})")
+    print("  ".join(row), flush=True)
+    return bad
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("halo_profile: no CUDA device", file=sys.stderr)
@@ -729,12 +828,16 @@ def main(argv) -> int:
     # every build at once: these sources, their profiled copies, each root's
     sources = ("cin.cu",) if parts == ("cin",) else (
         "conv_stage.cu", "conv_matmul.cu", "finish.cu", "act_stats.cu", "cin.cu")
+    if "probe" in parts:
+        sources = (() if parts == ("probe",) else sources) + ("probe_int8.cu", "probe_smem.cu")
     profiled = {"stages": "conv_stage.cu", "matmul": "conv_matmul.cu",
                 "act_stats": "act_stats.cu", "cin": "cin.cu"}
     with ThreadPoolExecutor() as pool:
         profs = {profiled[part]: pool.submit(
             _build, profiled_source((kernels.CSRC / profiled[part]).read_text()),
             f"halo_profile_{Path(profiled[part]).stem}") for part in parts if part in profiled}
+        if "probe" in parts:
+            profs["probe_rep.cuh"] = pool.submit(_build_probe)
         builds = [pool.submit(k.build, sources) for k in (kernels, *others.values())]
         profs = {src: f.result() for src, f in profs.items()}
         for b in builds:
@@ -751,6 +854,8 @@ def main(argv) -> int:
         stage_part(profs["conv_stage.cu"], others, mhz)
     if "matmul" in parts:
         matmul_part(profs["conv_matmul.cu"], others, mhz)
+    if "probe" in parts:
+        bad += probe_part(profs["probe_rep.cuh"], others, mhz)
     if bad:
         print(f"halo_profile: results differ: {bad}", file=sys.stderr)
     return 1 if bad else 0

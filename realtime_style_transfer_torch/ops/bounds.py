@@ -31,6 +31,11 @@ from .probe_repack import CASES, out_shape
 from .probe_smem import C as SMEM_C, M as SMEM_M, TAPS as SMEM_TAPS
 
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# Dense tensor-core operations an SM retires a clock: the data sheet's peaks
+# are these at 132 SMs and 1830 MHz, so a card whose SMs clock higher beats
+# PEAK_FLOPS (the matmul probes' repetitions, whose bound is read at the
+# card's own clock).
+OPS_PER_SM_CLOCK = {"bf16": 4096, "int8": 8192}
 HBM_BYTES_PER_S = 3.35e12
 LANE = 128
 CHUNK = 8  # frames of the chunk whose per-frame bound row 1b gives
@@ -41,6 +46,12 @@ def bound_ms(ops: float, n_bytes: float, kind: str = "bf16") -> Tuple[float, str
     ops_ms = ops / PEAK_FLOPS[kind] * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def clock_bound_ms(ops: float, kind: str, sms: int, mhz: float) -> float:
+    """Least time in ms of ``ops`` dense tensor-core operations on ``sms``
+    SMs at ``mhz`` (a card's max SM clock, as ``nvidia-smi`` reads it)."""
+    return ops / (OPS_PER_SM_CLOCK[kind] * sms * mhz * 1e6) * 1e3
 
 
 def conv_stage_work(st, *, skip_in: bool, skip_out: bool, dual: bool = False,

@@ -96,11 +96,11 @@ _ARGTYPES = {
                        + [_P, _P, _I, _P, _P, _I, _I, _P]),
     "rst_finish": [_P] * 7 + [_F, _F, _P] + [_I] * 5 + [_P],
     "rst_act_stats": [_P] * 7 + [_F, _F, _I, _I] + [_P] * 5 + [_I] * 6 + [_P],
-    "rst_probe": [_P] * 4 + [_I] * 5 + [_P],
+    "rst_probe": [_P] * 6 + [_I] * 6 + [_P],
     "rst_repack": [_P] * 3 + [_I] * 8 + [_P],
     "rst_conv_matmul": [_P] * 8 + [_I] * 13 + [_P],
     "rst_conv_matmul_f32": [_P] * 7 + [_I] * 11 + [_P],
-    "rst_probe_smem": [_I] * 4 + [_P] * 5,
+    "rst_probe_smem": [_I] * 5 + [_P] * 6,
     "rst_cin_forward": [_P, _I, _P, _P, _F] + [_P] * 4 + [_I] * 6 + [_P],
     "rst_cin_backward": [_P, _P, _I, _P, _P, _F] + [_P] * 5 + [_I] * 6 + [_P],
     "rst_cin_forward_sums": [_P, _I, _P, _P] + [_I] * 5 + [_P],

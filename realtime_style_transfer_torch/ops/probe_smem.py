@@ -13,11 +13,16 @@ Hopper the cap is the opt-in dynamic shared memory of one block
   held against :func:`fill_plain`.  Refused sizes come back with
   ``alloc_ok=False`` and the CUDA error.
 - :func:`work` (the TPU ``_work_kernel``): ``reps`` times the three
-  ``(2400, 128) @ (128, 128)`` bf16 tap matmuls, f32 accumulation, one warp a
-  16-row block, launched with ``reserve`` bytes of dynamic shared memory
-  reserved and unused; its plain version :func:`work_plain` is the same sum in
-  f32 torch.  ``chip_smoke.py`` times it at 8 and 32 repetitions under each
-  reservation and reports the slope and the blocks per SM.
+  ``(2400, 128) @ (128, 128)`` bf16 tap matmuls, f32 accumulation, on the
+  int8 probe's kernel (``csrc/probe_rep.cuh``: the weights in registers by
+  ``wgmma``, (tile, repetition) units over one block an SM, partials added in
+  a fixed order; :func:`work_plan`), a block taking ``max(own, reserve)``
+  bytes of shared memory, ``own`` being the kernel's, static and dynamic
+  (:attr:`work.own_bytes`); its plain version :func:`work_plain` is the same
+  sum in f32 torch.  ``chip_smoke.py`` times it under each reservation at 32
+  repetitions and by the slope between 8 and REPS_SLOPE_HI, and reports the
+  blocks per SM and the kernel's own bytes (a reservation at or below them
+  is a no-op).
 
 Each wrapper sends a CPU tensor to its plain version and counts its kernel
 launches in ``launches``.
@@ -32,10 +37,11 @@ import numpy as np
 import torch
 
 from . import kernels
+from .probe_rep import SLOT, RepPlan, rep_plan
 
 M, C, TAPS = 2400, 128, 3  # the TPU probe's workload (tools/probe_vmem_cap.py:113)
-ROWS_PER_BLOCK = 16
 REPS = (8, 32)             # the TPU probe's k_lo, k_hi
+REPS_SLOPE_HI = 512        # the slope's high count (REPS' 24 repetitions, 5 us, are within the spread)
 SWEEP_KB = (48, 64, 96, 128, 160, 192)
 
 
@@ -45,12 +51,15 @@ def sweep_bytes(optin: int) -> List[int]:
     return [kb * 1024 for kb in SWEEP_KB if kb * 1024 < optin] + [optin, optin + 1024]
 
 
-def _call(mode: int, n_bytes: int, blocks: int, reps: int, x, w, out) -> Dict[str, int]:
-    info = (ctypes.c_int * 3)()
+def _call(mode: int, n_bytes: int, blocks: int, reps: int, x, w, out,
+          partials=None) -> Dict[str, int]:
+    info = (ctypes.c_int * 4)()
     err = kernels._lib("probe_smem.cu").rst_probe_smem(
-        mode, n_bytes, blocks, reps, kernels._ptr(x), kernels._ptr(w), kernels._ptr(out),
-        ctypes.addressof(info), kernels._stream(out))
-    return {"error": int(err), "optin": info[0], "blocks_per_sm": info[1], "sms": info[2]}
+        mode, n_bytes, blocks, reps, 0 if x is None else x.shape[0], kernels._ptr(x),
+        kernels._ptr(w), kernels._ptr(out), kernels._ptr(partials), ctypes.addressof(info),
+        kernels._stream(out))
+    return {"error": int(err), "optin": info[0], "blocks_per_sm": info[1], "sms": info[2],
+            "own": info[3]}
 
 
 def fill_plain(n_bytes: int, blocks: int) -> np.ndarray:
@@ -90,31 +99,40 @@ def work_plain(x: torch.Tensor, w: torch.Tensor, reps: int) -> torch.Tensor:
     return reps * sum(xf @ wf[t] for t in range(w.shape[0]))
 
 
+def work_plan(reps: int, rows: int = M, sms: int = kernels.SMS) -> RepPlan:
+    """The work launch's plan: (tile, repetition) units over one block an SM
+    (``ops.probe_rep.rep_plan``'s ``work`` arm)."""
+    return rep_plan("work", reps, width=rows, sms=sms)
+
+
 def work(x: torch.Tensor, w: torch.Tensor, reps: int, reserve: int = 0) -> torch.Tensor:
-    """The fixed workload, ``reps`` times, launched with ``reserve`` bytes of
-    dynamic shared memory reserved; a CPU tensor runs :func:`work_plain`."""
+    """The fixed workload, ``reps`` times, a block taking ``max(own,
+    reserve)`` bytes of shared memory; a CPU tensor runs :func:`work_plain`."""
     if x.device.type == "cpu":
         return work_plain(x, w, reps)
     if x.device.type != "cuda":
         raise ValueError(f"the shared-memory probe runs on CUDA or the CPU, not {x.device}")
     m = x.shape[0]
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or x.shape[1:] != (C,) \
-            or tuple(w.shape) != (TAPS, C, C) or m % ROWS_PER_BLOCK or not x.is_contiguous():
-        raise ValueError(f"work: want contiguous bf16 x (16k, {C}) and w ({TAPS}, {C}, {C}), "
+            or tuple(w.shape) != (TAPS, C, C) or not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError(f"work: want contiguous bf16 x (m, {C}) and w ({TAPS}, {C}, {C}), "
                          f"got {x.dtype} {tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
-    wt = w.transpose(1, 2).contiguous()
+    plan = work_plan(reps, m, kernels._sm_count(x.device))
     out = torch.empty((m, C), dtype=torch.float32, device=x.device)
-    res = _call(1, reserve, m // ROWS_PER_BLOCK, reps, x, wt, out)
+    partials = torch.empty(plan.slots * SLOT, dtype=torch.float32, device=x.device)
+    res = _call(1, reserve, plan.blocks, reps, x, w, out, partials)
     if res["error"]:
         raise RuntimeError(f"probe_smem work: CUDA error {res['error']} at launch "
                            f"({reserve} bytes reserved)")
     work.launches += 1
     work.blocks_per_sm = res["blocks_per_sm"]
+    work.own_bytes = res["own"]
     return out
 
 
 work.launches = 0
 work.blocks_per_sm = 0
+work.own_bytes = 0
 
 
 def make_work_inputs(device, seed: int = 0):

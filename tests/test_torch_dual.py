@@ -340,5 +340,5 @@ def test_argtypes_follow_the_extern_c_signatures():
     assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",
                                     "rst_probe", "rst_repack", "rst_conv_matmul",
                                     "rst_conv_matmul_f32", "rst_probe_smem", "rst_cin_forward",
-                                    "rst_cin_backward")] == [47, 16, 23, 10, 12, 22, 19, 9, 16,
+                                    "rst_cin_backward")] == [47, 16, 23, 13, 12, 22, 19, 11, 16,
                                                              18]
