@@ -1756,7 +1756,7 @@ def main() -> int:
     from realtime_style_transfer_torch.ops.kernels import (
         Prologue, act_stats, act_stats_plain, conv_stage, conv_stage_plain, finish,
         finish_plain, make_conv_stage, unpack_frame)
-    from realtime_style_transfer_torch.timing import device_share, graph_ms
+    from realtime_style_transfer_torch.timing import graph_ms
     from realtime_style_transfer_torch.video import choose_path, stylize_video
     from realtime_style_transfer_torch.weights import to_flax
 
@@ -3198,21 +3198,6 @@ def main() -> int:
     for label, ms_ in frame_times.items():
         note(f"frame, {label} ({'fused stylize_prepacked, pack on the card' if 'fused' in label else 'PackedTransfer, content in, (1, H, W, 3) f32 out'}): "
              f"{ms_:.4f} ms")
-    with torch.no_grad():
-        profiles = {
-            "packed pallas": device_share(lambda: packed_engine(content_p, sp_ps,
-                                                                conv_backend="pallas")),
-            "fused": device_share(lambda: fused.stylize_prepacked(packed_p, prep_ps)),
-            "rst1920 dual packed pallas": device_share(lambda: packed12(
-                content_p12, sp12, ramp12_t, conv_backend="pallas")),
-        }
-    for label, prof_ in profiles.items():
-        if isinstance(prof_, str):
-            note(f"profile, {label}: {prof_}")
-        else:
-            note(f"profile, {label} (torch.profiler on, 5 frames): {prof_['activities']:.0f} "
-                 f"device activities a frame, device busy {prof_['busy_ms']:.4f} ms of "
-                 f"{prof_['wall_ms']:.4f} ms host wall: idle share {prof_['idle_share']:.1%}")
     for label, run_ in (("packed", run_ps), ("dual packed", run_pd), ("rst1920 dual packed", run_p12)):
         lat_ = sorted(run_["latency_s"])
         note(f"{label} video loop host latency per frame ({len(lat_)} frames, conv_backend "
@@ -3732,7 +3717,6 @@ def main() -> int:
                             "the packed path in f32 (conv_fma_kernel), each beside F.conv2d f32 "
                             "with TF32 off; f32_frame: one rst960 PackedTransfer frame in f32",
                 "launch_rows": launch_rows, "frame_ms": frame_times,
-                "frame_profile": profiles,
                 "cli_launches": cli_launches("conv_matmul", "fused", "int8 calibrate", "int8 reload", "dual", "packed dual"),
                 "cli_note": "the CLI's --path packed runs the packed path's default convs "
                             "(F.conv2d), as the JAX CLI runs XLA's"}

@@ -89,7 +89,7 @@ from .ops.conv import pack_transpose_kernel
 from .ops.bounds import act_stats_work, bound_ms, cin_work, finish_work
 from .ops.kernels import _ARGTYPES, Prologue, launch_act_stats, launch_conv_stage
 from .ops.packed_conv import pack
-from .timing import device_share, graph_ms
+from .timing import graph_ms
 
 # the phases each instrumented kernel's PROFILE LAP markers close, in order
 PHASES = {
@@ -400,13 +400,6 @@ def matmul_part(prof, others, mhz: float) -> None:
                 turns = [(r, _window_ms(frames[r], 20, 5)) for r in (name, "this", "this", name)]
                 print(f"packed frame {spec}, {styles} style(s), turns {name}, this, this, "
                       f"{name}: " + ", ".join(f"{r} {ms:.4f} ms" for r, ms in turns), flush=True)
-            for name, fn in frames.items():
-                busy = device_share(fn)
-                print(f"packed frame {spec}, {styles} style(s), {name}: " + (
-                    busy if isinstance(busy, str) else
-                    f"{busy['activities']:.0f} device activities, device busy "
-                    f"{busy['busy_ms']:.4f} ms of {busy['wall_ms']:.4f} ms host wall "
-                    "(profiler on)"), flush=True)
         del model, mine, frames
 
 

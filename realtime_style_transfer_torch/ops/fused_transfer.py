@@ -59,6 +59,7 @@ import torch
 
 from .. import resolve_device
 from ..models.transfer import NUM_RESIDUAL_BLOCKS, BN_EPS, TransferPlan
+from ..tracing import spans
 from . import kernels
 from .conv import pack_transpose_kernel, same_pads
 from .image_ops import style_weight_mips
@@ -170,6 +171,8 @@ class ChunkGraph(NamedTuple):
     prepared: PreparedStyle   # the style constants the graph reads
     out: torch.Tensor         # (N, H/4, W/4, 128) bf16 packed frames out
     captured: Dict[str, int]  # launches recorded into the graph, per kernel
+    stages: Tuple[str, ...]   # the stage of each recorded conv_stage and finish
+                              # launch, in launch order ("finish" for finish)
 
 
 class _Step(NamedTuple):
@@ -350,6 +353,7 @@ class FusedTransfer:
 
         self.steps: Tuple[_Step, ...] = tuple(steps)
         assert len(steps) == self.n_conv_stages
+        self._stage_spans = tuple("stage." + step.stage.name for step in steps)
         self._slot_channels = tuple(slot_channels)
         self._slot_counts = tuple(slot_counts)
         self._plane_hw = tuple(dict.fromkeys(slot_hw))  # distinct, in slot order
@@ -453,6 +457,12 @@ class FusedTransfer:
         return Prologue(self._moment_views[slot], self._slot_counts[slot],
                         rows[0], rows[1], self.eps, relu, *dual)
 
+    def _frame_buffers(self) -> List[torch.Tensor]:
+        """Zero the CIN moments and allocate the two skip buffers of a frame."""
+        self._moments.zero_()
+        return [torch.empty(self._skip_shape, dtype=torch.bfloat16, device=self.device)
+                for _ in range(2)]
+
     def _run_frame(self, packed: torch.Tensor, prepared: PreparedStyle,
                    result: Optional[torch.Tensor], plain: bool,
                    stage_hook: Optional[Callable] = None) -> None:
@@ -461,15 +471,24 @@ class FusedTransfer:
         graph can record it.  Given a ``stage_hook`` (calibrate and check),
         each conv stage i first calls ``stage_hook(i, x, stage, prologue,
         skip_in)`` on its input, and the finish is skipped."""
+        self._run_stages(packed, prepared, result, self._frame_buffers(), plain, stage_hook)
+
+    def _run_stages(self, packed: torch.Tensor, prepared: PreparedStyle,
+                    result: Optional[torch.Tensor], skips: List[torch.Tensor], plain: bool,
+                    stage_hook: Optional[Callable] = None) -> None:
+        """:meth:`_run_frame` after its buffers: one ``stage.<name>`` span a
+        step and ``stage.finish`` while spans are recorded, none under a
+        ``stage_hook``."""
         dev = self.device
         bf16 = torch.bfloat16
         run_conv, run_finish = ((conv_stage_plain, finish_plain) if plain
                                 else (conv_stage, finish))
-        self._moments.zero_()
-        skips = [torch.empty(self._skip_shape, dtype=bf16, device=dev) for _ in range(2)]
+        on = spans.on and stage_hook is None
         x = packed
         for i, step in enumerate(self.steps):
             st = step.stage
+            if on:
+                spans.begin(self._stage_spans[i])
             prologue = None if step.src < 0 else self._prologue(prepared, step.src, step.in_relu)
             skip_in = None if step.skip_in is None else skips[step.skip_in]
             if stage_hook is not None:
@@ -479,9 +498,15 @@ class FusedTransfer:
                 x, st, out, prologue=prologue, skip_in=skip_in,
                 skip_out=None if step.skip_out is None else skips[step.skip_out],
                 stats_out=None if step.slot < 0 else self._moment_views[step.slot])
+            if on:
+                spans.end()
             x = out
         if stage_hook is None:
+            if on:
+                spans.begin("stage.finish")
             run_finish(x, self._prologue(prepared, len(self._slot_channels) - 1, False), result)
+            if on:
+                spans.end()
 
     # ---- int8 calibrate and check ---------------------------------------------
 
@@ -575,17 +600,34 @@ class FusedTransfer:
         ``plain=True`` runs every stage's plain PyTorch version on the same
         device: the oracle that the kernels are held against on the card.
         """
+        on = spans.on
+        if on:
+            spans.begin("frame.prep")
         self._check_prepared(prepared)
         packed = packed.to(self.device, non_blocking=True)
         result = torch.empty((self.hp, self.wp, LANE), dtype=torch.bfloat16,
                              device=self.device)
-        self._run_frame(packed, prepared, result, plain)
+        skips = self._frame_buffers()
+        if on:
+            spans.end()
+        self._run_stages(packed, prepared, result, skips, plain)
         return result
 
     def stylize_prepacked(self, packed: torch.Tensor, prepared: PreparedStyle) -> torch.Tensor:
-        """Frame pack in, (1, H, W, 3) f32 out, on the engine's device."""
+        """Frame pack in, (1, H, W, 3) f32 out, on the engine's device.
+        While spans are recorded: a ``frame`` span with ``frame.prep``, a
+        ``stage.*`` span a stage and ``frame.unpack`` in it."""
+        on = spans.on
+        if on:
+            spans.begin_frame("frame")
         raw = self.stylize_prepacked_raw(packed, prepared)
-        return unpack_frame(raw, self.plan.expand_blocks[-1][0]).float()[None]
+        if on:
+            spans.begin("frame.unpack")
+        out = unpack_frame(raw, self.plan.expand_blocks[-1][0]).float()[None]
+        if on:
+            spans.end()
+            spans.end()
+        return out
 
     def stylize_prepacked_chunk(self, packed: torch.Tensor,
                                 prepared: PreparedStyle) -> torch.Tensor:
@@ -598,8 +640,13 @@ class FusedTransfer:
         and 1 ``finish`` launch a frame) into a graph that reads and writes
         static buffers; each call copies the packs and the style constants into them on the
         device and copies the frames out.  On the CPU the stage loop runs N
-        times.
+        times.  While spans are recorded: a ``chunk`` span with
+        ``chunk.copy_in``, ``chunk.replay`` and ``chunk.unpack`` in it (on the
+        CPU each frame's stage spans in place of the first two).
         """
+        on = spans.on
+        if on:
+            spans.begin_frame("chunk")
         self._check_prepared(prepared)
         if packed.ndim != 4 or tuple(packed.shape[1:3]) != (self.hp, self.wp):
             raise ValueError(f"want (N, {self.hp}, {self.wp}, C) frame packs, "
@@ -609,16 +656,30 @@ class FusedTransfer:
         if self.device.type != "cuda":
             raw = torch.stack([self.stylize_prepacked_raw(packed[i], prepared)
                                for i in range(n)])
-            return unpack(raw[..., :16 * c_out], 4, c_out).float()
-        chunk = self.chunk_graphs.get(n)
-        if chunk is None:
-            chunk = self.chunk_graphs[n] = self._capture_chunk(packed, prepared)
-        chunk.packed.copy_(packed, non_blocking=True)
-        chunk.prepared.table.copy_(prepared.table)
-        for static, plane in zip(chunk.prepared.planes, prepared.planes):
-            static.copy_(plane)
-        kernels.replay_graph(chunk.graph)
-        return unpack(chunk.out[..., :16 * c_out], 4, c_out).float()
+        else:
+            chunk = self.chunk_graphs.get(n)
+            if chunk is None:
+                chunk = self.chunk_graphs[n] = self._capture_chunk(packed, prepared)
+            if on:
+                spans.begin("chunk.copy_in")
+            chunk.packed.copy_(packed, non_blocking=True)
+            chunk.prepared.table.copy_(prepared.table)
+            for static, plane in zip(chunk.prepared.planes, prepared.planes):
+                static.copy_(plane)
+            if on:
+                spans.end()
+                spans.begin("chunk.replay")
+            kernels.replay_graph(chunk.graph)
+            if on:
+                spans.end()
+            raw = chunk.out
+        if on:
+            spans.begin("chunk.unpack")
+        out = unpack(raw[..., :16 * c_out], 4, c_out).float()
+        if on:
+            spans.end()
+            spans.end()
+        return out
 
     def _capture_chunk(self, packed: torch.Tensor, prepared: PreparedStyle) -> ChunkGraph:
         """Record the stage sequence of ``len(packed)`` frames into a CUDA
@@ -639,7 +700,8 @@ class FusedTransfer:
                 self._run_frame(static_in[i], static_prep, out[i], plain=False)
         captured = {"conv_stage": conv_stage.launches - before[0],
                     "finish": finish.launches - before[1]}
-        return ChunkGraph(graph, static_in, static_prep, out, captured)
+        order = tuple(step.stage.name for step in self.steps) + ("finish",)
+        return ChunkGraph(graph, static_in, static_prep, out, captured, order * n)
 
     def stylize_prepared(self, content: torch.Tensor, prepared: PreparedStyle) -> torch.Tensor:
         """(1, H, W, C) content with :meth:`prepare_style` output -> (1, H, W, 3)."""

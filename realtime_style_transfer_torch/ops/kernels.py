@@ -39,7 +39,10 @@ CUDA tensor launches the kernel or raises.  Each wrapper's ``launches`` counts
 kernel launches only (a launch recorded into a CUDA graph counts once, when it
 is recorded; ``conv_stage.path_launches`` splits its count by path,
 ``conv_stage.stage_launches`` by stage name);
-:func:`replay_graph` counts the replays of such a graph.
+:func:`replay_graph` counts the replays of such a graph.  While spans are
+recorded (:mod:`..tracing.spans`), a ``launch`` span goes around the ctypes
+call of ``conv_stage`` and ``finish`` alone: the CUDA runtime call that
+launches the kernel is inside it.
 
 The kernels build with ``nvcc`` on first use into ``build/rst_torch_kernels/``
 at the repository root (one ``nvcc`` per source, all started together) and
@@ -64,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..tracing import spans
 from .conv import depth_to_space_2x
 from .packed_conv import pack, unpack
 
@@ -864,7 +868,7 @@ def launch_conv_stage(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage, out: tor
     gives it a profiled build of the source and ``counters``, the int64
     buffer of its clock counters)."""
     oh, ow = st.out_hw
-    err = lib.rst_conv_stage(
+    args = (
         _ptr(x), _ptr(st.wslices), _ptr(counters),
         _ptr(st.bias), _ptr(st.cscale), _ptr(st.cshift), *_prologue_args(prologue),
         float(prologue.count) if prologue else 1.0,
@@ -876,6 +880,12 @@ def launch_conv_stage(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage, out: tor
         int(st.transpose), EPI[st.epi], st.cin_k, PATHS[st.path], st.block_n,
         _ptr(st.dequant), _ptr(st.act_inv), int(st.quant), _ptr(st.partials),
         _ptr(st.tickets), st.partials.numel(), st.tickets.numel(), _stream(x))
+    on = spans.on
+    if on:
+        spans.begin("launch")
+    err = lib.rst_conv_stage(*args)
+    if on:
+        spans.end()
     if err:
         raise RuntimeError(f"conv_stage {st.name}: CUDA error {err} at launch")
 
@@ -994,9 +1004,15 @@ def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tens
     _check(out, "finish output", torch.bfloat16, (h // 4, w // 4, out_c), dev)
     _check_prologue(prologue, "finish", c, (h, w), dev)
     plan = finish_plan(h, w, c, prologue.dual, _sm_count(dev))
-    err = _lib("finish.cu").rst_finish(
-        _ptr(x), *_prologue_args(prologue), float(prologue.count),
-        float(prologue.eps), _ptr(out), h, w, c, out_c, plan.tpx, _stream(x))
+    lib = _lib("finish.cu")
+    args = (_ptr(x), *_prologue_args(prologue), float(prologue.count),
+            float(prologue.eps), _ptr(out), h, w, c, out_c, plan.tpx, _stream(x))
+    on = spans.on
+    if on:
+        spans.begin("launch")
+    err = lib.rst_finish(*args)
+    if on:
+        spans.end()
     if err:
         raise RuntimeError(f"finish: CUDA error {err} at launch")
     finish.launches += 1
