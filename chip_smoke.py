@@ -48,10 +48,11 @@ Run from the repository root: ``python3 chip_smoke.py``.
    (prefetcher + ``stylize_prepacked``).  Every frame is compared with the
    eager f32 ``StyleTransferNet`` (TF32 off; rtol 0.08, atol 0.03) and with the
    plain bf16 stage composition (rtol 0.05, atol 0.02, median < 5e-3), and the
-   launch counters must show every stage kernel launched for every frame,
-   each stage on the path of its role (``conv_stage.path_launches``): the
-   residual and expand convs on the halo path, 12 launches a frame (13 at
-   rst-1920), the 9x9 stem and final on the window path, 2 a frame, the
+   launch counters must show every stage kernel launched for the warm-up frame
+   and the frame the engine's frame graph records, then one graph replay a
+   frame (``replay_graph.replays``), each stage on the path of its role
+   (``conv_stage.path_launches``): the residual and expand convs on the halo
+   path, 12 launches a frame (13 at rst-1920), the 9x9 stem and final on the window path, 2 a frame, the
    stride-2 contracts on the strided path, 2 a frame (3 at rst-1920).
    The dual path does the same with two seeded style images, the vertical
    ramp weight map of ``bench.py``'s dual mode and 8 more frames; one frame
@@ -111,8 +112,10 @@ Run from the repository root: ``python3 chip_smoke.py``.
    (the JAX int8 bar against the bf16 kernel path, the plain int8
    composition), the saturation check, 8-frame chunks in bf16 and int8
    (phase 2's limits against single calls; two replays bit-equal), two calls
-   of one frame bit-equal in bf16 and int8, the launch counts (18 ``conv_stage`` and 1 ``finish`` a frame; 18 ``act_stats``
-   a calibrate or check frame), and its times: frame, chunk, calibration,
+   of one frame bit-equal in bf16 and int8, the launch counts (18
+   ``conv_stage`` and 1 ``finish`` for the warm-up frame and the frame
+   graph's recorded one, then one replay a frame; 18 ``act_stats`` a
+   calibrate or check frame), and its times: frame, chunk, calibration,
    saturation check, predictor, and the video loop's host latency, bf16 and
    int8.
 6. The repack probe (``ops/probe_repack.py``): deinterleave, interleave,
@@ -205,8 +208,9 @@ Run from the repository root: ``python3 chip_smoke.py``.
    writes one PNG a frame, every value finite; the fused run's and the
    two-style run's frames equal ``video.stylize_video``'s on the same decoded
    frames bit for bit (after ``image_to_uint8``), and the reload's equal the
-   calibrate run's; 16 ``conv_stage`` and 1 ``finish`` launches a frame (and
-   the warm-up), 16 ``act_stats`` a calibrate or check frame; the reload
+   calibrate run's; 16 ``conv_stage`` and 1 ``finish`` launches for the warm-up
+   frame and the frame graph's recorded one, then one replay a frame (and
+   the warm-up call), 16 ``act_stats`` a calibrate or check frame; the reload
    passes the fingerprint and logs the saturation check.  Prints the CLI's
    frame latency percentiles, its frame loop's rate, the native decode time
    of one G-buffer set and the host's other steps of a frame (preprocess,
@@ -262,7 +266,8 @@ Run from the repository root: ``python3 chip_smoke.py``.
    from sums instead of means); 10 + 10 ``cin`` launches a step; both
    steps timed in turns (4 steps a turn, CUDA events).  Then
    ``FusedStreamStylizer(path="fused")`` on 8 frames, one a step, bit-equal
-   to ``FusedTransfer.stylize_prepacked`` (16 + 1 launches a frame), and the
+   to ``FusedTransfer.stylize_prepacked`` (16 + 1 launches for the warm-up
+   frame and the frame graph's recorded one, then one replay a frame), and the
    int8 streamer, calibrated on its rank's bf16 engine with the scales
    broadcast, each frame held to the JAX int8 bar against the bf16 kernel
    path and to the plain int8 composition (as phase 3).
@@ -449,6 +454,7 @@ def cli_phase(note, failures) -> dict:
         torch.cuda.synchronize()
         launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
                     "act_stats": kernels.act_stats.launches,
+                    "replay_graph": kernels.replay_graph.replays,
                     "conv_matmul": conv_matmul.conv_valid_matmul.launches}
         imgs = [np.asarray(PIL.Image.open(p)) for p in sorted((root / label).glob("frame_*.png"))]
         lat = out["latency"]
@@ -464,8 +470,9 @@ def cli_phase(note, failures) -> dict:
             failures.append(f"cli {label} frames")
         return dict(out=out, imgs=imgs, launches=launches, logs=logs.lines)
 
-    def check_launches(label, got, conv_stage, finish, act_stats):
-        want = {"conv_stage": conv_stage, "finish": finish, "act_stats": act_stats}
+    def check_launches(label, got, conv_stage, finish, act_stats, replays):
+        want = {"conv_stage": conv_stage, "finish": finish, "act_stats": act_stats,
+                "replay_graph": replays}
         seen = {k: got[k] for k in want}
         print(f"  cli {label} launches: {seen}, expected {want}")
         if seen != want:
@@ -517,14 +524,16 @@ def cli_phase(note, failures) -> dict:
              + ", ".join(f"{v:.4f}" for v in steps["decode"]))
         return steps
 
+    # a fused engine's first frame: a warm-up frame and the one its frame graph
+    # records, 16 + 1 launches each; then one replay a frame (+ the warm-up call)
     n_st = 16
     runs = {}
     runs["fused"] = a = run("fused", 1, "--path", "fused")
     if a is not None:
-        check_launches("fused", a["launches"], n_st * (N_FRAMES + 1), N_FRAMES + 1, 0)
+        check_launches("fused", a["launches"], 2 * n_st, 2, 0, N_FRAMES + 1)
         split = host_split(check_library("fused", a["imgs"], 1), a["imgs"])
     scales = root / "scales.npz"
-    int8_counts = (n_st * (N_FRAMES + 1 + N_CAL), N_FRAMES + 1, n_st * N_CAL)
+    int8_counts = (n_st * (2 + N_CAL), 2, n_st * N_CAL, N_FRAMES + 1)
     runs["int8 calibrate"] = b = run("int8", 1, "--path", "fused", "--quant", "int8",
                                      "--scales_out", str(scales))
     if b is not None:
@@ -547,12 +556,12 @@ def cli_phase(note, failures) -> dict:
                 failures.append("cli int8 reload vs calibrate frames")
     runs["dual"] = c = run("dual", 2, "--path", "fused", "-w", str(ramp))
     if c is not None:
-        check_launches("dual", c["launches"], n_st * (N_FRAMES + 1), N_FRAMES + 1, 0)
+        check_launches("dual", c["launches"], 2 * n_st, 2, 0, N_FRAMES + 1)
         check_library("dual", c["imgs"], 2, load_image(ramp, (h, w, 1)))
     runs["packed dual"] = d = run("packed_dual", 2, "--path", "packed", "--profile_dir",
                                   str(root / "trace"))
     if d is not None:
-        check_launches("packed dual", d["launches"], 0, 0, 0)
+        check_launches("packed dual", d["launches"], 0, 0, 0, 0)
         traces = list((root / "trace").glob("*.pt.trace.json"))
         print(f"  cli packed dual --profile_dir: {[t.name for t in traces]}")
         if not traces:
@@ -907,11 +916,13 @@ def effnet_phase(ctx) -> dict:
         got = fused.stylize_prepacked(packs[0], prepared)
         torch.cuda.synchronize()
         frame_launches = {"conv_stage": kernels.conv_stage.launches,
-                          "finish": kernels.finish.launches}
+                          "finish": kernels.finish.launches,
+                          "replay_graph": kernels.replay_graph.replays}
         want = v2s_f32.transfer(torch.from_numpy(frames[0])[None].to(dev), params.float())
-    print(f"  V2-S-conditioned frame: launches {frame_launches}, expected "
-          f"{{'conv_stage': {len(fused.steps)}, 'finish': 1}}")
-    if frame_launches != {"conv_stage": len(fused.steps), "finish": 1} or len(fused.steps) != 16:
+    # the engine's first frame: a warm-up frame, the frame graph's recorded one, a replay
+    want_launches = {"conv_stage": 2 * len(fused.steps), "finish": 2, "replay_graph": 1}
+    print(f"  V2-S-conditioned frame: launches {frame_launches}, expected {want_launches}")
+    if frame_launches != want_launches or len(fused.steps) != 16:
         failures.append("V2-S frame launch counts")
     out["frame_err"] = close("V2-S-conditioned fused frame vs the eager f32 net", got, want,
                              0.08, 0.03 / max(want.abs().max().item(), 1e-6))
@@ -1095,16 +1106,19 @@ def data_axis_phase(ctx) -> dict:
         got = [stream.stylize_batch(f[None], prepared) for f in frames]
         torch.cuda.synchronize()
         stream_launches = {"conv_stage": kernels.conv_stage.launches,
-                           "finish": kernels.finish.launches}
+                           "finish": kernels.finish.launches,
+                           "replay_graph": kernels.replay_graph.replays}
         prep = engine.prepare_style(style_params)
         want = [engine.stylize_prepacked(engine.pack_frame_np(f[None]), prep) for f in frames]
         same = stream.path == "fused" and all(torch.equal(a, b) for a, b in zip(got, want))
         n_st = len(engine.steps)
+        # a fresh engine: a warm-up frame and the frame graph's recorded one, then
+        # one replay a frame
+        want_stream = {"conv_stage": 2 * n_st, "finish": 2, "replay_graph": N_FRAMES}
         print(f"  FusedStreamStylizer(path='fused'): {N_FRAMES} frames bit-equal to "
               f"FusedTransfer.stylize_prepacked {'ok' if same else 'FAIL'}; launches "
-              f"{stream_launches}, expected {{'conv_stage': {n_st * N_FRAMES}, 'finish': "
-              f"{N_FRAMES}}}")
-        if not same or stream_launches != {"conv_stage": n_st * N_FRAMES, "finish": N_FRAMES}:
+              f"{stream_launches}, expected {want_stream}")
+        if not same or stream_launches != want_stream:
             failures.append("FusedStreamStylizer bf16")
         bf16_engine = stream.fused_engine
         packs = [bf16_engine.pack_frame_np(f[None]) for f in frames[:N_CAL]]
@@ -1119,10 +1133,11 @@ def data_axis_phase(ctx) -> dict:
         torch.cuda.synchronize()
         int8_launches = {"conv_stage": kernels.conv_stage.launches,
                          "finish": kernels.finish.launches,
-                         "act_stats": kernels.act_stats.launches}
-        print(f"  int8 FusedStreamStylizer: launches {int8_launches}, expected "
-              f"{{'conv_stage': {n_st * N_FRAMES}, 'finish': {N_FRAMES}, 'act_stats': 0}}")
-        if int8_launches != {"conv_stage": n_st * N_FRAMES, "finish": N_FRAMES, "act_stats": 0}:
+                         "act_stats": kernels.act_stats.launches,
+                         "replay_graph": kernels.replay_graph.replays}
+        want_int8 = dict(want_stream, act_stats=0)
+        print(f"  int8 FusedStreamStylizer: launches {int8_launches}, expected {want_int8}")
+        if int8_launches != want_int8:
             failures.append("int8 FusedStreamStylizer launch counts")
         errs_bf16, errs_plain, psnrs = ctx.check_int8_frames(
             "int8 stream", bf16_engine, stream8.fused_engine, results, frames, prepared, prep8)
@@ -1845,8 +1860,10 @@ def main() -> int:
         also its conv_stage launches by path (``paths``: what they must come
         to a frame) and by stage."""
         launches = {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
-                    "act_stats": kernels.act_stats.launches}
-        want = dict({"act_stats": 0}, **{k: v * frames for k, v in per_frame.items()})
+                    "act_stats": kernels.act_stats.launches,
+                    "replay_graph": kernels.replay_graph.replays}
+        want = dict({"act_stats": 0, "replay_graph": 0},
+                    **{k: v * frames for k, v in per_frame.items()})
         want.update(extra or {})
         print(f"{label} launches: {launches}, expected {want} "
               f"({frames} frames, {per_frame} per frame)")
@@ -2245,8 +2262,10 @@ def main() -> int:
     run = stylize_video(model, fused, style_image, frames,
                         lambda i, frame: results.__setitem__(i, frame))
     torch.cuda.synchronize()
-    launches = check_launches("single", per_frame, N_FRAMES + 1, engine=fused,
-                              paths=PATHS_960)  # + warm-up
+    # a fresh engine's frame graph: a warm-up frame and the recorded one, then one
+    # replay a frame (+ the warm-up call)
+    launches = check_launches("single", per_frame, 2, {"replay_graph": N_FRAMES + 1},
+                              engine=fused, paths=PATHS_960)
     style_params = run["style_params"]
     if tuple(style_params.shape) != (1, 1, 2662) or not torch.isfinite(style_params).all():
         failures.append("style params")
@@ -2271,8 +2290,8 @@ def main() -> int:
     run2 = stylize_video(model2, fused2, style_images, frames2,
                          lambda i, frame: results2.__setitem__(i, frame), style_weights=ramp)
     torch.cuda.synchronize()
-    launches2 = check_launches("dual", per_frame, N_FRAMES + 1, engine=fused2,
-                               paths=PATHS_960)
+    launches2 = check_launches("dual", per_frame, 2, {"replay_graph": N_FRAMES + 1},
+                               engine=fused2, paths=PATHS_960)
     style_params2 = run2["style_params"]
     if tuple(style_params2.shape) != (1, 2, 2662) or not torch.isfinite(style_params2).all():
         failures.append("dual style params")
@@ -2450,9 +2469,9 @@ def main() -> int:
                               variables=to_flax(mdl.transfer.state_dict()),
                               calibration_frames=N_CAL)
         torch.cuda.synchronize()
-        counts = check_launches(label, {"conv_stage": n_st, "finish": 1}, len(frs) + 1,
-                                {"conv_stage": n_st * (len(frs) + 1 + N_CAL),
-                                 "act_stats": n_st * N_CAL}, engine=bf16_engine,
+        counts = check_launches(label, {"conv_stage": n_st, "finish": 1}, 2,
+                                {"conv_stage": n_st * (2 + N_CAL), "act_stats": n_st * N_CAL,
+                                 "replay_graph": len(frs) + 1}, engine=bf16_engine,
                                 paths=PATHS_1920 if bf16_engine.three_seg else PATHS_960)
         engine = run_q["engine"]
         prep_q = engine.prepare_style(sp, weights_t)
@@ -2766,8 +2785,8 @@ def main() -> int:
     run1 = stylize_video(model1, fused1, style_image1, frames1,
                          lambda i, frame: results1.__setitem__(i, frame))
     torch.cuda.synchronize()
-    launches1 = check_launches("rst1920", per_frame1, N_FRAMES + 1, engine=fused1,
-                               paths=PATHS_1920)  # + warm-up
+    launches1 = check_launches("rst1920", per_frame1, 2, {"replay_graph": N_FRAMES + 1},
+                               engine=fused1, paths=PATHS_1920)
     style_params1 = run1["style_params"]
     if tuple(style_params1.shape) != (1, 1, 2678) or not torch.isfinite(style_params1).all():
         failures.append("rst1920 style params")

@@ -150,9 +150,18 @@
 //   after   as on the halo path: the sums through an f32 tile in shared
 //           memory to tile_epilogue, then flush_moments.
 //
+// The frame graph (ops/fused_transfer.py FusedTransfer._capture_frame): one
+// frame's launches recorded into a CUDA graph read the caller's frame pack in
+// one node, the stem's, through Params::x.  rst_graph_input_node finds that
+// node once, after the capture; rst_graph_set_input points it at another pack
+// in the instantiated graph before a replay, so the graph reads every pack
+// where it lies and holds no copy of it.
+//
 // "// PROFILE LAP i" marks the end of phase i of the halo and window kernels
 // for halo_profile.py, which turns each marker into a clock64 counter in a
 // copy of this file (the counters are written to Params::counters).
+#include <vector>
+
 #include "hopper.cuh"
 #include "stage_common.cuh"
 
@@ -1289,4 +1298,75 @@ extern "C" int rst_conv_stage(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+namespace {
+// Whether a graph node's function is one of this file's kernels, whose one
+// argument is a Params.
+template <int BN>
+bool is_kernel_bn(const void* f) {
+  return f == (const void*)conv_halo_kernel<BN, false, false> ||
+         f == (const void*)conv_halo_kernel<BN, true, false> ||
+         f == (const void*)conv_halo_kernel<BN, false, true> ||
+         f == (const void*)conv_halo_kernel<BN, true, true> ||
+         f == (const void*)conv_window_kernel<BN, false> ||
+         f == (const void*)conv_window_kernel<BN, true>;
+}
+
+bool is_conv_kernel(const void* f) {
+  return is_kernel_bn<8>(f) || is_kernel_bn<16>(f) || is_kernel_bn<32>(f) ||
+         is_kernel_bn<64>(f) || is_kernel_bn<128>(f);
+}
+
+// The parameters of a kernel node that launches one of this file's kernels;
+// false for any other node.  A kernel of another library's runtime may not
+// resolve here: its error is cleared, so that the next launch's
+// cudaGetLastError does not report it.
+bool conv_node_params(cudaGraphNode_t node, cudaKernelNodeParams* kp) {
+  cudaGraphNodeType type;
+  if (cudaGraphNodeGetType(node, &type) != cudaSuccess || type != cudaGraphNodeTypeKernel ||
+      cudaGraphKernelNodeGetParams(node, kp) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  return is_conv_kernel(kp->func);
+}
+}  // namespace
+
+// The node of the captured graph `graph` that launches one of this file's
+// kernels on the input x (Params::x) -> *node; *matches counts such nodes.
+// cudaErrorInvalidValue unless exactly one matches.
+extern "C" int rst_graph_input_node(void* graph, const void* x, void** node, int* matches) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *matches = 0;
+  for (cudaGraphNode_t nd : nodes) {
+    cudaKernelNodeParams kp;
+    if (conv_node_params(nd, &kp) && static_cast<const Params*>(kp.kernelParams[0])->x == x) {
+      *node = nd;
+      ++*matches;
+    }
+  }
+  return static_cast<int>(*matches == 1 ? cudaSuccess : cudaErrorInvalidValue);
+}
+
+// Points the node found by rst_graph_input_node at the input x in the
+// instantiated graph `exec`: its Params as recorded, with x replaced.  The
+// update applies to launches of `exec` made after it.
+extern "C" int rst_graph_set_input(void* exec, void* node, const void* x) {
+  const cudaGraphNode_t nd = static_cast<cudaGraphNode_t>(node);
+  cudaKernelNodeParams kp;
+  if (!conv_node_params(nd, &kp)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = *static_cast<const Params*>(kp.kernelParams[0]);
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  void* args[] = {&p};
+  kp.kernelParams = args;
+  kp.extra = nullptr;
+  return static_cast<int>(
+      cudaGraphExecKernelNodeSetParams(static_cast<cudaGraphExec_t>(exec), nd, &kp));
 }

@@ -27,6 +27,9 @@ the same loop runs their plain versions.
 Chunk mode (:meth:`FusedTransfer.stylize_prepacked_chunk`) runs N frames with
 one host dispatch, the counterpart of the TPU kernel's ``grid=(N,)``: on CUDA
 the N-frame stage sequence is recorded once into a CUDA graph and replayed.
+:meth:`FusedTransfer.stylize_prepacked` runs a frame on CUDA as one replay of
+a one-frame graph, whose stem node is re-pointed at each call's pack
+(:class:`FrameGraph`): one launch a frame from the host, not one a stage.
 
 int8 (``quant="int8"``) is the JAX package's deploy-mode post-training
 quantization: :meth:`FusedTransfer.calibrate_act_scales` records, on the bf16
@@ -51,6 +54,7 @@ the tiling.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -175,6 +179,31 @@ class ChunkGraph(NamedTuple):
                               # launch, in launch order ("finish" for finish)
 
 
+@dataclasses.dataclass
+class FrameGraph:
+    """One frame's stage sequence recorded into a CUDA graph that reads the
+    caller's frame pack where it lies: only the stem's node reads the pack,
+    and :meth:`set_input` points that node at another before a replay.  The
+    style is read through static buffers, the frame written to one."""
+
+    graph: "torch.cuda.CUDAGraph"
+    prepared: PreparedStyle   # the style constants the graph reads
+    out: torch.Tensor         # (H/4, W/4, 128) bf16 packed frame out
+    captured: Dict[str, int]  # launches recorded into the graph, per kernel
+    stages: Tuple[str, ...]   # as ChunkGraph.stages, for one frame
+    node: int                 # the stem's kernel node in the recorded graph
+    graph_exec: int           # the instantiated graph that replays
+    x: int                    # the address of the pack the stem's node reads
+
+    def set_input(self, packed: torch.Tensor) -> None:
+        """Point the stem's node at ``packed``, unless it reads it already.
+        Replays already queued keep the pack they were launched with."""
+        x = packed.data_ptr()
+        if x != self.x:
+            kernels.set_graph_input(self.graph_exec, self.node, x)
+            self.x = x
+
+
 class _Step(NamedTuple):
     stage: ConvStage
     src: int                 # CIN slot applied on load, -1 for none
@@ -232,6 +261,7 @@ class FusedTransfer:
             self.act_scales = self._check_scales(act_scales, "per-channel maxima from "
                                                  "calibrate_act_scales()")
         self.chunk_graphs: Dict[int, ChunkGraph] = {}
+        self.frame_graph: Optional[FrameGraph] = None
         h, w, _ = plan.input_shape
         self.hp, self.wp = h // 4, w // 4
         # the JAX kernel's bottleneck grid; the port keeps its checks so that
@@ -615,12 +645,24 @@ class FusedTransfer:
 
     def stylize_prepacked(self, packed: torch.Tensor, prepared: PreparedStyle) -> torch.Tensor:
         """Frame pack in, (1, H, W, 3) f32 out, on the engine's device.
-        While spans are recorded: a ``frame`` span with ``frame.prep``, a
-        ``stage.*`` span a stage and ``frame.unpack`` in it."""
+
+        On CUDA one replay of the engine's frame graph runs the frame: the
+        first call warms the kernels up on one frame, then records one
+        frame's stage sequence (moment zeroing, the skips, the conv stages
+        and ``finish``) into a graph (:class:`FrameGraph`); each call copies
+        the style constants into its static buffers, points its stem at the
+        pack and replays it.  On the CPU, and while the current stream is
+        being captured into another graph, the stage loop runs.  While spans
+        are recorded: a ``frame`` span with ``frame.prep``, ``frame.replay``
+        and ``frame.unpack`` in it; the stage loop has a ``stage.*`` span a
+        stage in place of ``frame.replay``."""
         on = spans.on
         if on:
             spans.begin_frame("frame")
-        raw = self.stylize_prepacked_raw(packed, prepared)
+        if self._frame_graph_engages():
+            raw = self._replay_frame(packed, prepared, on)
+        else:
+            raw = self.stylize_prepacked_raw(packed, prepared)
         if on:
             spans.begin("frame.unpack")
         out = unpack_frame(raw, self.plan.expand_blocks[-1][0]).float()[None]
@@ -628,6 +670,64 @@ class FusedTransfer:
             spans.end()
             spans.end()
         return out
+
+    def _frame_graph_engages(self) -> bool:
+        """Whether :meth:`stylize_prepacked` replays the frame graph: on
+        CUDA, unless the current stream is being captured (captures do not
+        nest)."""
+        return self.device.type == "cuda" and not torch.cuda.is_current_stream_capturing()
+
+    def _replay_frame(self, packed: torch.Tensor, prepared: PreparedStyle,
+                      on: bool) -> torch.Tensor:
+        """The frame graph's half of :meth:`stylize_prepacked`: the packed
+        (H/4, W/4, 128) frame, in the graph's static output."""
+        if on:
+            spans.begin("frame.prep")
+        self._check_prepared(prepared)
+        packed = packed.to(self.device, non_blocking=True)
+        # the graph's stem reads whatever lies at the pointer: refuse here what
+        # the eager stem would refuse
+        kernels.check_stage_input(packed, self.steps[0].stage)
+        fg = self.frame_graph
+        if fg is None:
+            fg = self.frame_graph = self._capture_frame(packed, prepared)
+        fg.prepared.table.copy_(prepared.table)
+        for static, plane in zip(fg.prepared.planes, prepared.planes):
+            static.copy_(plane)
+        fg.set_input(packed)
+        if on:
+            spans.end()
+            spans.begin("frame.replay")
+        kernels.replay_graph(fg.graph)
+        if on:
+            spans.end()
+        return fg.out
+
+    def _capture_frame(self, packed: torch.Tensor, prepared: PreparedStyle) -> FrameGraph:
+        """Record one frame's stage sequence on the pack ``packed`` into a
+        CUDA graph over a static copy of ``prepared``, and find the stem's
+        node, the one node that reads ``packed``."""
+        dev = self.device
+        static_prep = PreparedStyle(prepared.table.clone(),
+                                    tuple(p.clone() for p in prepared.planes))
+        out = torch.empty((self.hp, self.wp, LANE), dtype=torch.bfloat16, device=dev)
+        # one frame outside the graph loads the kernels and sets their launch
+        # attributes, which may not happen while a graph records; its buffers
+        # are freed on return, so the recording holds no more than one frame's
+        self._run_frame(packed, static_prep, out, plain=False)
+        torch.cuda.synchronize(dev)
+        before = (conv_stage.launches, finish.launches)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._run_frame(packed, static_prep, out, plain=False)
+        captured = {"conv_stage": conv_stage.launches - before[0],
+                    "finish": finish.launches - before[1]}
+        x = packed.data_ptr()
+        node = kernels.graph_input_node(graph.raw_cuda_graph(), x)
+        graph.instantiate()
+        order = tuple(step.stage.name for step in self.steps) + ("finish",)
+        return FrameGraph(graph, static_prep, out, captured, order, node,
+                          graph.raw_cuda_graph_exec(), x)
 
     def stylize_prepacked_chunk(self, packed: torch.Tensor,
                                 prepared: PreparedStyle) -> torch.Tensor:

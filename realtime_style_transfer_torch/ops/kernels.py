@@ -39,7 +39,9 @@ CUDA tensor launches the kernel or raises.  Each wrapper's ``launches`` counts
 kernel launches only (a launch recorded into a CUDA graph counts once, when it
 is recorded; ``conv_stage.path_launches`` splits its count by path,
 ``conv_stage.stage_launches`` by stage name);
-:func:`replay_graph` counts the replays of such a graph.  While spans are
+:func:`replay_graph` counts the replays of such a graph.
+:func:`graph_input_node` and :func:`set_graph_input` re-point a recorded
+graph's stem launch at another frame pack.  While spans are
 recorded (:mod:`..tracing.spans`), a ``launch`` span goes around the ctypes
 call of ``conv_stage`` and ``finish`` alone: the CUDA runtime call that
 launches the kernel is inside it.
@@ -111,6 +113,8 @@ _ARGTYPES = {
     "rst_cin_forward_apply": [_P, _I, _P, _I, _P, _P, _F, _P, _P] + [_I] * 5 + [_P],
     "rst_cin_backward_sums": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
     "rst_cin_backward_apply": [_P, _P, _I, _P, _P, _I, _P, _F, _P] + [_I] * 5 + [_P],
+    "rst_graph_input_node": [_P] * 4,
+    "rst_graph_set_input": [_P] * 3,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -819,12 +823,18 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: want a contiguous 16-byte-aligned tensor")
 
 
+def check_stage_input(x: torch.Tensor, st: ConvStage) -> None:
+    """Stage ``st``'s input as its kernel reads it: bf16 of its input shape,
+    contiguous and 16-byte aligned, or ValueError."""
+    _check(x, f"{st.name} input", torch.bfloat16, st.in_shape, x.device)
+
+
 def _check_stage_inputs(x, st: ConvStage, prologue: Optional[Prologue],
                         skip_in: Optional[torch.Tensor]) -> None:
     """The checks :func:`conv_stage` and :func:`act_stats` share: the input,
     the prologue and the incoming skip of stage ``st``."""
     dev = x.device
-    _check(x, f"{st.name} input", torch.bfloat16, st.in_shape, dev)
+    check_stage_input(x, st)
     if st.pack_c and (prologue is not None or skip_in is not None):
         raise ValueError(f"{st.name}: a pack-input stage takes no prologue or skips")
     if skip_in is not None:
@@ -1030,6 +1040,28 @@ def replay_graph(graph: "torch.cuda.CUDAGraph") -> None:
 
 
 replay_graph.replays = 0
+
+
+def graph_input_node(raw_graph: int, x: int) -> int:
+    """The node of a recorded CUDA graph (``CUDAGraph.raw_cuda_graph()``,
+    ``keep_graph=True``) that launches a ``conv_stage`` kernel on the input
+    at address ``x``; RuntimeError unless exactly one does."""
+    node, matches = ctypes.c_void_p(), ctypes.c_int()
+    err = _lib("conv_stage.cu").rst_graph_input_node(raw_graph, x, ctypes.byref(node),
+                                                     ctypes.byref(matches))
+    if err:
+        raise RuntimeError(f"graph_input_node: {matches.value} conv_stage launches read "
+                           f"input {x:#x}, want 1 (CUDA error {err})")
+    return node.value
+
+
+def set_graph_input(graph_exec: int, node: int, x: int) -> None:
+    """Point ``node`` (:func:`graph_input_node`) of the instantiated graph
+    ``graph_exec`` (``CUDAGraph.raw_cuda_graph_exec()``) at the input at
+    address ``x``, for the replays after this call."""
+    err = _lib("conv_stage.cu").rst_graph_set_input(graph_exec, node, x)
+    if err:
+        raise RuntimeError(f"set_graph_input: CUDA error {err}")
 
 
 def reset_launch_counts() -> None:

@@ -314,6 +314,7 @@ def test_prepare_style_checks_styles_and_weights(port_models):
 
 
 _CTYPES = {"const void*": kernels.ctypes.c_void_p, "void*": kernels.ctypes.c_void_p,
+           "void**": kernels.ctypes.c_void_p, "int*": kernels.ctypes.c_void_p,
            "float": kernels.ctypes.c_float, "int": kernels.ctypes.c_int}
 
 
@@ -334,7 +335,9 @@ def test_argtypes_follow_the_extern_c_signatures():
                                                     "rst_cin_backward", "rst_cin_forward_sums",
                                                     "rst_cin_forward_apply",
                                                     "rst_cin_backward_sums",
-                                                    "rst_cin_backward_apply"}
+                                                    "rst_cin_backward_apply",
+                                                    "rst_graph_input_node",
+                                                    "rst_graph_set_input"}
     for name, types in found.items():
         assert kernels._ARGTYPES[name] == types, name
     assert [len(found[n]) for n in ("rst_conv_stage", "rst_finish", "rst_act_stats",
