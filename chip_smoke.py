@@ -2332,7 +2332,10 @@ def main() -> int:
         got = engine.stylize_prepacked_chunk(packs, prep)
         torch.cuda.synchronize()
         graph = engine.chunk_graphs[n]
-        want_captured = {"conv_stage": n_st * n, "finish": n}
+        # a dual frame blends at every stage that applies a CIN, and in the finish
+        blends = (sum(step.src >= 0 for step in engine.steps) + 1) * n \
+            if engine.num_styles == 2 else 0
+        want_captured = {"conv_stage": n_st * n, "finish": n, "blends": blends}
         replays = kernels.replay_graph.replays
         print(f"chunk {label}: graph holds {graph.captured} (expected {want_captured}), "
               f"replays {replays} (expected 1), launches on the way "

@@ -174,7 +174,8 @@ class ChunkGraph(NamedTuple):
     packed: torch.Tensor      # (N, H/4, W/4, 384) bf16 frame packs in
     prepared: PreparedStyle   # the style constants the graph reads
     out: torch.Tensor         # (N, H/4, W/4, 128) bf16 packed frames out
-    captured: Dict[str, int]  # launches recorded into the graph, per kernel
+    captured: Dict[str, int]  # launches recorded into the graph, per kernel, and
+                              # "blends": those given a weight plane (dual)
     stages: Tuple[str, ...]   # the stage of each recorded conv_stage and finish
                               # launch, in launch order ("finish" for finish)
 
@@ -189,7 +190,7 @@ class FrameGraph:
     graph: "torch.cuda.CUDAGraph"
     prepared: PreparedStyle   # the style constants the graph reads
     out: torch.Tensor         # (H/4, W/4, 128) bf16 packed frame out
-    captured: Dict[str, int]  # launches recorded into the graph, per kernel
+    captured: Dict[str, int]  # as ChunkGraph.captured
     stages: Tuple[str, ...]   # as ChunkGraph.stages, for one frame
     node: int                 # the stem's kernel node in the recorded graph
     graph_exec: int           # the instantiated graph that replays
@@ -202,6 +203,13 @@ class FrameGraph:
         if x != self.x:
             kernels.set_graph_input(self.graph_exec, self.node, x)
             self.x = x
+
+
+def _recorded() -> Dict[str, int]:
+    """The wrappers' counters that a graph's ``captured`` takes the
+    difference of across its recording."""
+    return {"conv_stage": kernels.conv_stage.launches, "finish": kernels.finish.launches,
+            "blends": kernels.conv_stage.blends + kernels.finish.blends}
 
 
 class _Step(NamedTuple):
@@ -403,7 +411,9 @@ class FusedTransfer:
     def prepare_style(self, style_params, style_weights=None) -> PreparedStyle:
         """Style vectors ((1, S, P), (S, P), or (P,) for one style) and, dual,
         the (1, H, W, 1) weight map of the second style -> the per-CIN table
-        of scale and bias rows in slice (ABI) order, and the weight planes."""
+        of scale and bias rows in slice (ABI) order, and the weight planes
+        (built on the host; a ``style.planes`` span while spans are
+        recorded)."""
         n_styles = self.num_styles
         if n_styles == 2 and style_weights is None:
             raise ValueError("style_weights required for dual-style")
@@ -424,7 +434,14 @@ class FusedTransfer:
                 table[slot, 2 * s, :c] = sp[s, offset:offset + c]
                 table[slot, 2 * s + 1, :c] = sp[s, offset + c:offset + 2 * c]
             offset += 2 * c
-        planes = self._weight_planes(style_weights) if n_styles == 2 else ()
+        planes = ()
+        if n_styles == 2:
+            on = spans.on
+            if on:
+                spans.begin("style.planes")
+            planes = self._weight_planes(style_weights)
+            if on:
+                spans.end()
         return PreparedStyle(table.to(self.device), planes)
 
     def _weight_planes(self, style_weights) -> Tuple[torch.Tensor, ...]:
@@ -716,12 +733,11 @@ class FusedTransfer:
         # are freed on return, so the recording holds no more than one frame's
         self._run_frame(packed, static_prep, out, plain=False)
         torch.cuda.synchronize(dev)
-        before = (conv_stage.launches, finish.launches)
+        before = _recorded()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._run_frame(packed, static_prep, out, plain=False)
-        captured = {"conv_stage": conv_stage.launches - before[0],
-                    "finish": finish.launches - before[1]}
+        captured = {k: v - before[k] for k, v in _recorded().items()}
         x = packed.data_ptr()
         node = kernels.graph_input_node(graph.raw_cuda_graph(), x)
         graph.instantiate()
@@ -793,13 +809,12 @@ class FusedTransfer:
         # attributes, which may not happen while a graph records
         self._run_frame(static_in[0], static_prep, out[0], plain=False)
         torch.cuda.synchronize(dev)
-        before = (conv_stage.launches, finish.launches)
+        before = _recorded()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             for i in range(n):
                 self._run_frame(static_in[i], static_prep, out[i], plain=False)
-        captured = {"conv_stage": conv_stage.launches - before[0],
-                    "finish": finish.launches - before[1]}
+        captured = {k: v - before[k] for k, v in _recorded().items()}
         order = tuple(step.stage.name for step in self.steps) + ("finish",)
         return ChunkGraph(graph, static_in, static_prep, out, captured, order * n)
 

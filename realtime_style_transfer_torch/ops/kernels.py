@@ -40,6 +40,10 @@ kernel launches only (a launch recorded into a CUDA graph counts once, when it
 is recorded; ``conv_stage.path_launches`` splits its count by path,
 ``conv_stage.stage_launches`` by stage name);
 :func:`replay_graph` counts the replays of such a graph.
+``conv_stage.blends`` and ``finish.blends`` count the calls given a dual
+prologue, which blend two styles per pixel by its weight plane: on the card
+each is one launch, counted as ``launches`` is; on the CPU each is one call
+of the plain version.
 :func:`graph_input_node` and :func:`set_graph_input` re-point a recorded
 graph's stem launch at another frame pack.  While spans are
 recorded (:mod:`..tracing.spans`), a ``launch`` span goes around the ctypes
@@ -859,6 +863,11 @@ def _check_prologue(pro: Prologue, name: str, c: int, hw, device) -> None:
         _check(pro.weight, f"{name} prologue weight", torch.bfloat16, hw, device)
 
 
+def _blends(pro: Optional[Prologue]) -> int:
+    """1 for a prologue that blends two styles, else 0."""
+    return int(pro is not None and pro.dual)
+
+
 def _prologue_args(pro: Optional[Prologue]):
     """The six pointers of a prologue, in the kernels' argument order."""
     if pro is None:
@@ -910,6 +919,7 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     same input give the same bits; the stage's scratch serves one launch at a
     time, as one stream runs them)."""
     if x.device.type == "cpu":
+        conv_stage.blends += _blends(prologue)
         return conv_stage_plain(x, st, out, prologue=prologue, skip_in=skip_in,
                                 skip_out=skip_out, stats_out=stats_out)
     if x.device.type != "cuda":
@@ -932,12 +942,14 @@ def conv_stage(x: torch.Tensor, st: ConvStage, out: torch.Tensor, *,
     conv_stage.launches += 1
     conv_stage.path_launches[st.path] += 1
     conv_stage.stage_launches[st.name] = conv_stage.stage_launches.get(st.name, 0) + 1
+    conv_stage.blends += _blends(prologue)
     return out
 
 
 conv_stage.launches = 0
 conv_stage.path_launches = dict.fromkeys(PATHS, 0)  # the launches by A-operand path
 conv_stage.stage_launches = {}  # the launches by stage name
+conv_stage.blends = 0  # the calls that blended two styles
 
 
 def launch_act_stats(lib: ctypes.CDLL, x: torch.Tensor, st: ConvStage,
@@ -1001,6 +1013,7 @@ def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tens
     (H/4, W/4, out_c) bf16 frame; channels >= 16*C are zero.  A dual
     prologue's weight plane is (H, W)."""
     if x.device.type == "cpu":
+        finish.blends += _blends(prologue)
         return finish_plain(x, prologue, out)
     if x.device.type != "cuda":
         raise ValueError(f"finish runs on CUDA or the CPU, not {x.device}")
@@ -1026,10 +1039,12 @@ def finish(x: torch.Tensor, prologue: Prologue, out: torch.Tensor) -> torch.Tens
     if err:
         raise RuntimeError(f"finish: CUDA error {err} at launch")
     finish.launches += 1
+    finish.blends += _blends(prologue)
     return out
 
 
 finish.launches = 0
+finish.blends = 0  # the calls that blended two styles
 
 
 def replay_graph(graph: "torch.cuda.CUDAGraph") -> None:
@@ -1068,6 +1083,8 @@ def reset_launch_counts() -> None:
     conv_stage.launches = 0
     conv_stage.path_launches = dict.fromkeys(PATHS, 0)
     conv_stage.stage_launches = {}
+    conv_stage.blends = 0
     finish.launches = 0
+    finish.blends = 0
     act_stats.launches = 0
     replay_graph.replays = 0

@@ -142,6 +142,18 @@ def test_capture_records_one_frame_in_the_chunk_graphs_stage_order(cpu_engine,
     assert torch.equal(fg.out, eng.stylize_prepacked_raw(packs[0], prep))
 
 
+@pytest.mark.parametrize("num_styles", [1, 2])
+def test_capture_counts_the_blending_calls_it_records(stand_in_graphs, num_styles):
+    """A dual frame blends at every stage that applies a CIN (12 of the 16)
+    and in the finish; a one-style frame nowhere."""
+    eng, packs, (prep, _) = _engine(SPEC, "cpu", num_styles=num_styles, seed=3)
+    fg = eng._capture_frame(packs[0], prep)
+    chunk = eng._capture_chunk(torch.stack(packs), prep)
+    blends = 12 + 1 if num_styles == 2 else 0
+    assert fg.captured["blends"] == blends
+    assert chunk.captured["blends"] == blends * len(packs)
+
+
 def test_set_input_repoints_the_stem_only_when_the_pack_moves(cpu_engine, monkeypatch):
     eng, packs, (prep, _) = cpu_engine
     calls = []
@@ -202,7 +214,9 @@ def test_graph_frames_equal_the_stage_loop_bit_for_bit(card_engines, kind):
     got = [eng.stylize_prepacked(p, prep) for p in packs]
     torch.cuda.synchronize()
     fg = eng.frame_graph
-    assert fg.captured == {"conv_stage": n_st, "finish": 1}
+    # a dual frame blends at every stage that applies a CIN, and in the finish
+    blends = sum(step.src >= 0 for step in eng.steps) + 1 if eng.num_styles == 2 else 0
+    assert fg.captured == {"conv_stage": n_st, "finish": 1, "blends": blends}
     assert fg.stages == tuple(step.stage.name for step in eng.steps) + ("finish",)
     # the warm-up frame and the recorded one, then one replay a call
     assert (kernels.conv_stage.launches, kernels.finish.launches,

@@ -177,6 +177,10 @@ if rank == 0:
     write_tree(out + "/state.npz", tree)
     write_tree(out + "/spatial_state.npz", spatial_tree)
     np.savez(out + "/results.npz", **results)
+# both ranks tear down together: a rank that destroys its group and exits while
+# the other still writes its results dies in c10d's teardown now and then
+# ("terminate called without an active exception", rc -6)
+dist.barrier()
 dist.destroy_process_group()
 print(f"rank {rank} ok", flush=True)
 """
